@@ -5,18 +5,37 @@
 
 Runs from the root of a checkout and needs one CUDA card. Phases, one JSON
 line each:
-  1. build      compile the CUDA kernels from tudocomp_tpu_torch/csrc;
-  2. kernels    each kernel against its plain PyTorch version on the card,
-                at the shapes of the main path, held to exact equality (every
-                stage is integer arithmetic);
-  3. roundtrip  a seeded 256 MiB input through
-                driver.compress / decompress("blockwise(encode(huff))",
-                device="cuda"); the container must equal, byte for byte, the
-                one the JAX package's host path writes (tudocomp_tpu.driver,
-                which runs without jax), and both decoders must return the
-                input; every kernel must have been launched;
-  4. timing     CUDA-event times of each kernel and its plain version, and
-                the end-to-end encode / decode rates of the roundtrip.
+  1. build          compile the CUDA kernels from tudocomp_tpu_torch/csrc,
+                    one nvcc per source, in parallel;
+  2. kernels        kernels A-D against their plain PyTorch versions on the
+                    card, at the shapes of the Huffman path, held to exact
+                    equality (every stage is integer arithmetic);
+  3. roundtrip      a seeded 256 MiB input through
+                    driver.compress / decompress("blockwise(encode(huff))",
+                    device="cuda"); the container must equal, byte for byte,
+                    the one the JAX package's host path writes
+                    (tudocomp_tpu.driver, which runs without jax), and both
+                    decoders must return the input; kernels A-D must have
+                    been launched;
+  4. timing         CUDA-event times of kernels A-D and their plain versions,
+                    and the end-to-end encode / decode rates of the roundtrip;
+  5. lz78 kernels   kernels E (LZ78 parse) and F (LZW parse) against their
+                    plain versions and the host parses, exactly, at the
+                    shapes phase 6 launches them with (the whole input as
+                    [200, 262144] and [6400, 8192]), at [128, 8192] and at
+                    an odd batch of 131 blocks;
+  6. lz78 roundtrip 50 MiB of bench.py's English stand-in through
+                    blockwise(lz78(coder=bit)) (bs 256 KiB),
+                    blockwise(lz78(coder=bit),bs=8192) and
+                    blockwise(lzw(coder=bit),bs=8192) on the card; each
+                    container must equal the JAX package's host path's and
+                    both decoders must return the input; E and F must have
+                    been launched;
+  7. lz78 timing    the device parse of phase 6's blocks against the host
+                    parse of the same blocks, the stages of each lz78/lzw
+                    encode and decode, the end-to-end rates, and the encode
+                    at the parse gate's largest block and at four times it,
+                    with the device parse and with the host parse.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels, and the final line {"ok": true, "device": {...}}. Any failure
 raises: the script then exits non-zero and prints no final line. jax is
@@ -42,6 +61,13 @@ DEC_BS = 1 << 14  # bench.py's decode streams: 16 KiB
 ROUNDTRIP_BYTES = 256 * MIB
 TEXT_BYTES = 16 * MIB
 ALGO = "blockwise(encode(huff))"
+LZ78_BYTES = 50 * MIB  # BASELINE config 2's english.50MB, as bench.py synthesizes it
+LZ78_ALGOS = {  # id -> (block size, the kernel of its parse)
+    "blockwise(lz78(coder=bit))": (BS, "lz78_parse"),
+    "blockwise(lz78(coder=bit),bs=8192)": (8192, "lz78_parse"),
+    "blockwise(lzw(coder=bit),bs=8192)": (8192, "lzw_parse"),
+}
+HUFF_KERNELS = ("pack_blocks", "pack_bytes_blocks", "huffman_tables", "decode_payloads")
 
 KERNEL_INFO = {
     "pack_blocks": (
@@ -59,6 +85,14 @@ KERNEL_INFO = {
     "decode_payloads": (
         "tudocomp_tpu_torch/csrc/decode.cu",
         "tudocomp_tpu/ops/huffman_decode_pallas.py:113",
+    ),
+    "lz78_parse": (
+        "tudocomp_tpu_torch/csrc/lz78.cu",
+        "tudocomp_tpu/ops/lz78_pallas.py:45, tudocomp_tpu/ops/lz78_bucket_pallas.py:52",
+    ),
+    "lzw_parse": (
+        "tudocomp_tpu_torch/csrc/lz78.cu",
+        "tudocomp_tpu/ops/lz78_pallas.py:126",
     ),
 }
 
@@ -96,6 +130,27 @@ def text_bytes(n: int):
     return np.frombuffer((text * (n // len(text) + 1))[:n], np.uint8)
 
 
+def english_bytes(n: int):
+    """bench.py's stand-in for Pizza&Chili english (etc/datasets.py, seed 7)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "etc"))
+    from datasets import synth_english
+
+    return np.frombuffer(synth_english(np.random.default_rng(7), n), np.uint8)
+
+
+def ref_compress(algo: str, data: bytes) -> bytes:
+    """The JAX package's host path, one block after another."""
+    from tudocomp_tpu.driver import compress as host_compress
+
+    os.environ["TDC_BLOCKWISE_PROCS"] = "0"
+    try:
+        return host_compress(algo, data)
+    finally:
+        del os.environ["TDC_BLOCKWISE_PROCS"]
+
+
 def max_abs_err(got, want) -> int:
     import torch
 
@@ -127,6 +182,29 @@ def cuda_ms(fn, budget_ms: float = 500.0, max_iters: int = 50) -> float:
     return timed(n) if n >= 2 else t
 
 
+def cuda_once(fn):
+    """fn()'s result and the CUDA-event ms of that one run."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def synced(fn):
+    """fn()'s result and its host seconds, the card synchronized after it."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -137,8 +215,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    os.environ["TDC_BLOCKWISE_PROCS"] = "0"  # the reference host path: no worker pool
-    os.environ.pop("TDC_DEVICE_HUFF", None)
+    for var in ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_BLOCKWISE_PROCS"):
+        os.environ.pop(var, None)
 
     import numpy as np
 
@@ -229,7 +307,7 @@ def main() -> int:
     emit({"phase": "kernels", "max_abs_err": errs, "tolerance": 0, "streams": len(payloads), "card": gpu})
 
     # 3. roundtrip through the public entry points ----------------------------
-    from tudocomp_tpu.driver import compress as host_compress, decompress as host_decompress
+    from tudocomp_tpu.driver import decompress as host_decompress
     from tudocomp_tpu_torch.driver import compress, decompress
 
     data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
@@ -244,11 +322,11 @@ def main() -> int:
     launches = kernels.counts()
     if back != data:
         raise AssertionError("device roundtrip differs from the input")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in HUFF_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t3 = time.perf_counter()
-    ref = host_compress(ALGO, data)
+    ref = ref_compress(ALGO, data)
     t4 = time.perf_counter()
     if container != ref:
         raise AssertionError("container differs from the JAX package's host path")
@@ -284,6 +362,16 @@ def main() -> int:
           "decode_s": t2 - t1, "decode_GBps": len(data) / (t2 - t1) / 1e9,
           "card": gpu})
 
+    del data, back, container, ref
+
+    # 5-7. the LZ78/LZW block parse -------------------------------------------
+    text = english_bytes(LZ78_BYTES)
+    errs_e, timing_e = lz78_kernel_phase(text, dev, gpu)
+    errs.update(errs_e)
+    launches.update(lz78_roundtrip_phase(text.tobytes(), gpu))
+    lz78_timing_phase(text, dev, gpu)
+    timing.update(timing_e)
+
     print(gpu)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -294,6 +382,249 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _parse_fns(kernel: str):
+    from tudocomp_tpu.compressors.lz78 import lz78_parse
+    from tudocomp_tpu.compressors.lzw import lzw_parse
+    from tudocomp_tpu_torch.ops import lz78_cuda as lc
+
+    if kernel == "lz78_parse":
+        return lc.lz78_parse_blocks, lc.lz78_parse_blocks_plain, lz78_parse
+    return lc.lzw_parse_blocks, lc.lzw_parse_blocks_plain, lzw_parse
+
+
+def _per_block(kernel: str, out) -> list:
+    """The kernel's (or plain version's) tensors as per-block host arrays."""
+    rows = [t.cpu().numpy() for t in out]
+    nf = rows[-1]
+    if kernel == "lz78_parse":
+        return [(rows[0][i, :k].astype("uint32"), rows[1][i, :k]) for i, k in enumerate(nf)]
+    return [rows[0][i, :k].astype("uint32") for i, k in enumerate(nf)]
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, tuple):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(a, b)
+
+
+def lz78_kernel_phase(text, dev, gpu):
+    """Phase 5: E and F against their plain versions and the host parses, at
+    the main path's shapes (the whole input, split as phase 6 splits it) and
+    at odd ones. The kernels line takes the times at [6400, 8192]."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu.parallel.blocks import split_blocks
+
+    def batch(lo: int, B: int, bs: int):
+        return text[lo : lo + B * bs].reshape(B, bs).copy(), np.full(B, bs, np.int32)
+
+    odd, odd_nv = batch(5 * MIB, 131, 8192)  # B not a multiple of 128
+    odd[0] = ord("e")  # one byte throughout: ends inside a phrase
+    odd_nv[1], odd_nv[2], odd_nv[3] = 0, 5000, 1  # empty, ragged, one byte
+    cases = {
+        "lz78 [128, 8192]": ("lz78_parse", *batch(0, 128, 8192)),
+        "lz78 odd [131, 8192]": ("lz78_parse", odd, odd_nv),
+        "lzw [128, 8192]": ("lzw_parse", *batch(0, 128, 8192)),
+        "lzw odd [131, 8192]": ("lzw_parse", odd, odd_nv),
+    }
+    line_case = {}
+    for bs, kname in LZ78_ALGOS.values():
+        blocks, n_valid = split_blocks(text.tobytes(), bs)
+        name = f"{kname.split('_')[0]} [{len(blocks)}, {bs}]"
+        cases[name] = (kname, blocks, n_valid)
+        if bs == 8192:
+            line_case[kname] = name
+    errs = {"lz78_parse": 0, "lzw_parse": 0}
+    report, timing = {}, {}
+    for name, (kname, blocks, n_valid) in cases.items():
+        kernel, plain, host = _parse_fns(kname)
+        b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
+        got = kernel(b, nv)
+        torch.cuda.empty_cache()  # the plain child table of a main shape takes ~52 GiB
+        want, plain_ms = cuda_once(lambda: plain(b, nv))
+        err = max_abs_err(got, want)
+        per_block = _per_block(kname, got)
+        host_ok = all(_same(g, host(blocks[i, : n_valid[i]])) for i, g in enumerate(per_block))
+        if err or not host_ok:
+            raise AssertionError(f"{name}: max_abs_err {err} against the plain version, host parse equal: {host_ok}")
+        ms = cuda_ms(lambda: kernel(b, nv))
+        mid = None
+        if kname == "lz78_parse":  # a trailing factor repeats an earlier one; others never do
+            mid = sum(len(p) > 1 and bool(((p[:-1] == p[-1]) & (c[:-1] == c[-1])).any()) for p, c in per_block)
+            if mid == 0:
+                raise AssertionError(f"{name}: no block ends inside a phrase")
+        report[name] = {"ms": ms, "plain_ms": plain_ms, "factors": int(got[-1].sum()),
+                        "blocks_ending_mid_phrase": mid}
+        errs[kname] = max(errs[kname], err)
+        if name == line_case[kname]:
+            timing[kname] = {"ms": ms, "plain_ms": plain_ms}
+        del b, nv, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "lz78 kernels", "max_abs_err": errs, "tolerance": 0, "cases": report, "card": gpu})
+    return errs, timing
+
+
+def lz78_roundtrip_phase(data: bytes, gpu) -> dict:
+    """Phase 6: the three ids on the card against the JAX package's host path."""
+    import torch
+
+    from tudocomp_tpu import native
+    from tudocomp_tpu.driver import decompress as host_decompress
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.driver import compress, decompress
+
+    launches = {"lz78_parse": 0, "lzw_parse": 0}
+    for algo, (bs, kname) in LZ78_ALGOS.items():
+        kernels.reset_counts()
+        container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+        back, dec_s = synced(lambda: decompress(container, device="cuda"))
+        n = kernels.counts()[kname]
+        if n == 0:
+            raise AssertionError(f"{algo}: kernel {kname} never launched")
+        launches[kname] += n
+        if back != data:
+            raise AssertionError(f"{algo}: device roundtrip differs from the input")
+        t0 = time.perf_counter()
+        ref = ref_compress(algo, data)
+        t1 = time.perf_counter()
+        if container != ref:
+            raise AssertionError(f"{algo}: container differs from the JAX package's host path")
+        if host_decompress(container) != data:
+            raise AssertionError(f"{algo}: the JAX package's host decode differs from the input")
+        t2 = time.perf_counter()
+        if sys.modules.get("jax") is not None:
+            raise AssertionError("jax was imported")
+        emit({"phase": "lz78 roundtrip", "algo": algo, "bytes": len(data),
+              "blocks": -(-len(data) // bs), "container_bytes": len(container),
+              "ratio": len(container) / len(data), "launches": {kname: n},
+              "first_encode_s": enc_s, "first_decode_s": dec_s,
+              "host_reference_encode_s": t1 - t0, "host_reference_decode_s": t2 - t1,
+              "host_reference_native": native.get_lib() is not None, "card": gpu})
+        del container, back, ref
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _stages(data: bytes, algo: str, dev) -> dict:
+    """Host seconds of each stage of the device-parse encode and of the
+    host decode of `algo` (synchronized after each device stage)."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu.compressors.lz78 import lz78_expand
+    from tudocomp_tpu.compressors.lzw import lzw_expand
+    from tudocomp_tpu.parallel.blocks import frame_streams, split_blocks, unframe_streams
+    from tudocomp_tpu_torch.driver import decompress
+    from tudocomp_tpu_torch.registry import TorchRegistry
+
+    bs, kname = LZ78_ALGOS[algo]
+    kernel = _parse_fns(kname)[0]
+    reg = TorchRegistry(dev)
+    inner_id = "lz78(coder=bit)" if kname == "lz78_parse" else "lzw(coder=bit)"
+    comp = reg.select(inner_id)
+    st = {}
+    (blocks, n_valid), st["split_blocks"] = synced(lambda: split_blocks(data, bs))
+    (b, nv), st["copy to the card"] = synced(
+        lambda: (torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)))
+    out, st["kernel E" if kname == "lz78_parse" else "kernel F"] = synced(lambda: kernel(b, nv))
+
+    def back():
+        nf = out[-1].cpu().numpy()
+        used = int(nf.max())
+        return [t[:, :used].cpu().numpy() for t in out[:-1]], nf
+
+    (rows, nf), st["factors back to the host"] = synced(back)
+    if kname == "lz78_parse":
+        lists, st["per-block lists"] = synced(
+            lambda: [(rows[0][i, :k].astype(np.uint32), rows[1][i, :k]) for i, k in enumerate(nf)])
+        payloads, st["per-block _encode_factors"] = synced(
+            lambda: [comp._encode_factors(p, c) for p, c in lists])
+    else:
+        lists, st["per-block lists"] = synced(
+            lambda: [rows[0][i, :k].astype(np.uint32) for i, k in enumerate(nf)])
+        payloads, st["per-block _encode_codes"] = synced(lambda: [comp._encode_codes(c) for c in lists])
+    container, st["frame_streams"] = synced(lambda: frame_streams(payloads, bs))
+    st["encode total"] = sum(st.values())
+    dec = {}
+    (_, streams), dec["unframe_streams"] = synced(lambda: unframe_streams(container))
+    parts, dec["per-block decode through the driver"] = synced(
+        lambda: [decompress(p, id_string=inner_id, raw=True, registry=reg) for p in streams])
+    _, dec["b''.join"] = synced(lambda: b"".join(parts))
+    dec["decode total"] = sum(dec.values())
+    if kname == "lz78_parse":
+        _, dec["lz78_expand alone, one thread"] = synced(lambda: [lz78_expand(p, c) for p, c in lists])
+    else:
+        _, dec["lzw_expand alone, one thread"] = synced(lambda: [lzw_expand(c) for c in lists])
+    if b"".join(parts) != data:
+        raise AssertionError(f"{algo}: the staged roundtrip differs from the input")
+    return {"encode": st, "decode": dec}
+
+
+def lz78_timing_phase(text, dev, gpu) -> None:
+    """Phase 7: the device parse of the roundtrip's blocks (copies included)
+    against the host parse of the same blocks, the stage breakdowns, warm
+    end-to-end rates, and the encode with the device parse and with the
+    host parse at the parse gate's largest block (device.PARSE_MAX_BS) and
+    at four times that."""
+    from tudocomp_tpu.parallel.blocks import split_blocks
+    from tudocomp_tpu_torch import device as tdev
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.driver import compress, decompress
+    from tudocomp_tpu_torch.ops import lz78_cuda as lc
+
+    import torch
+
+    data = text.tobytes()
+    shapes, stages, e2e = {}, {}, {}
+    for algo, (bs, kname) in LZ78_ALGOS.items():
+        host = _parse_fns(kname)[2]
+        blocks, n_valid = split_blocks(data, bs)
+        helper = lc.lz78_parse_blocks_device if kname == "lz78_parse" else lc.lzw_parse_blocks_device
+        host_s = {}
+        for trie in ("ternary", "hash"):  # the compressors' default trie, and tdc_lz78_parse's hash
+            t0 = time.perf_counter()
+            for i in range(len(blocks)):
+                host(blocks[i, : n_valid[i]], trie)
+            host_s[trie] = time.perf_counter() - t0
+        shapes[algo] = {
+            "blocks": len(blocks), "block_bytes": bs,
+            "device_parse_to_lists_s": synced(lambda: helper(blocks, n_valid, dev))[1],
+            "host_parse_s": host_s,
+        }
+        stages[algo] = _stages(data, algo, dev)
+        container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+        back, dec_s = synced(lambda: decompress(container, device="cuda"))
+        if back != data:
+            raise AssertionError(f"{algo}: warm roundtrip differs from the input")
+        e2e[algo] = {"encode_s": enc_s, "encode_MBps": len(data) / enc_s / 1e6,
+                     "decode_s": dec_s, "decode_MBps": len(data) / dec_s / 1e6}
+        torch.cuda.empty_cache()
+    cap, gate = tdev.PARSE_MAX_BS, {}
+    tdev.PARSE_MAX_BS = 4 * cap  # lets TDC_DEVICE_LZ78=1 reach past the gate
+    try:
+        for kind in ("lz78", "lzw"):
+            for bs in (cap, 4 * cap):
+                algo = f"blockwise({kind}(coder=bit),bs={bs})"
+                out = {}
+                for mode in ("1", "0"):  # device parse, host parse
+                    os.environ["TDC_DEVICE_LZ78"] = mode
+                    kernels.reset_counts()
+                    out[mode], gate[f"{algo}, TDC_DEVICE_LZ78={mode}, encode_s"] = synced(
+                        lambda: compress(algo, data, device="cuda"))
+                    if (kernels.counts()[f"{kind}_parse"] > 0) != (mode == "1"):
+                        raise AssertionError(f"{algo}: TDC_DEVICE_LZ78={mode} took the other parse")
+                if out["1"] != out["0"]:
+                    raise AssertionError(f"{algo}: the device and host parses give different containers")
+    finally:
+        tdev.PARSE_MAX_BS = cap
+        os.environ.pop("TDC_DEVICE_LZ78", None)
+    emit({"phase": "lz78 timing", "parse": shapes, "stages": stages, "end_to_end": e2e,
+          "gate": gate, "card": gpu})
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from tudocomp_tpu_torch.driver import compress, decompress
 from tudocomp_tpu_torch.ops import bitpack_cuda as bc
 from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
 from tudocomp_tpu_torch.ops import huffman_torch as ht
+from tudocomp_tpu_torch.ops import lz78_cuda as lc
 from tudocomp_tpu_torch.ops import table_kernels as tk
 
 pytestmark = pytest.mark.cuda
@@ -101,6 +102,46 @@ def test_roundtrip_launches_every_kernel(dev, monkeypatch):
     kernels.reset_counts()
     c = compress(algo, data, device="cuda")
     assert decompress(c, device="cuda") == data
-    assert all(kernels.counts().values())
+    launches = kernels.counts()
+    assert all(launches[k] for k in ("pack_blocks", "pack_bytes_blocks", "huffman_tables", "decode_payloads"))
     monkeypatch.setenv("TDC_DEVICE_HUFF", "1")
     assert compress(algo, data, device="cpu") == c
+
+
+def _text_blocks(dev, B=5, bs=3001):
+    rng = np.random.default_rng(4)
+    blocks = rng.integers(97, 101, (B, bs)).astype(np.uint8)  # deep tries
+    blocks[1] = 0  # one run of the byte whose keys include key 0
+    blocks[2] = rng.integers(0, 256, bs)
+    n_valid = np.array([bs, bs, bs - 7, 0, 1][:B], np.int32)  # ragged, one empty block
+    return torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
+
+
+def test_lz78_parse_kernel(dev):
+    blocks, n_valid = _text_blocks(dev)
+    kernels.reset_counts()
+    got = lc.lz78_parse_blocks(blocks, n_valid)
+    torch.cuda.synchronize()
+    assert kernels.counts()["lz78_parse"] == 1
+    _equal(got, lc.lz78_parse_blocks_plain(blocks, n_valid))
+
+
+def test_lzw_parse_kernel(dev):
+    blocks, n_valid = _text_blocks(dev)
+    kernels.reset_counts()
+    got = lc.lzw_parse_blocks(blocks, n_valid)
+    torch.cuda.synchronize()
+    assert kernels.counts()["lzw_parse"] == 1
+    _equal(got, lc.lzw_parse_blocks_plain(blocks, n_valid))
+
+
+@pytest.mark.parametrize("algo", ["blockwise(lz78(coder=bit),bs=4096)", "blockwise(lzw(coder=bit),bs=4096)"])
+def test_lz78_roundtrip_on_the_card(dev, algo, monkeypatch):
+    monkeypatch.delenv("TDC_DEVICE_LZ78", raising=False)
+    rng = np.random.default_rng(5)
+    data = b"".join(rng.choice([b"lz78 ", b"parse ", b"on ", b"the ", b"card. "], 40000))
+    kernels.reset_counts()
+    c = compress(algo, data, device="cuda")
+    assert kernels.counts()["lz78_parse"] + kernels.counts()["lzw_parse"] == 1
+    assert decompress(c, device="cuda") == data
+    assert c == compress(algo, data, device="cpu")  # the host parse

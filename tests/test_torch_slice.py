@@ -139,6 +139,10 @@ _JAX_FREE = textwrap.dedent(
     if sys.argv[1] == "cpu":
         c = compress("blockwise(encode(huff),bs=4096)", data, device="cpu")
         assert decompress(c, device="cpu") == data
+        for parse in ("1", "0"):  # the lz78 parse's plain version, then the host parse
+            os.environ["TDC_DEVICE_LZ78"] = parse
+            c = compress("blockwise(lz78(coder=bit),bs=1024)", data, device="cpu")
+            assert decompress(c, device="cpu") == data
     else:
         try:
             compress("blockwise(encode(huff))", data, device="cuda")

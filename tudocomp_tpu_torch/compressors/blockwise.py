@@ -1,19 +1,27 @@
 """Blockwise compressor of the port (id "blockwise").
 
-The DSL surface of the block-parallel Huffman path:
+    blockwise(inner, bs=262144, shared=0)
 
-    blockwise(encode(huff), bs=262144, shared=0)
+The input is split into fixed-size blocks, each block is compressed on its
+own by the inner compressor, and the streams are framed in the TBK1
+container (tudocomp_tpu's parallel/blocks.py), so the bytes equal the JAX
+package's. The routing is tudocomp_tpu/compressors/blockwise.py's:
+encode(huff) goes to the device runtime where device.use_device says so
+(TDC_DEVICE_HUFF); an inner with a batch hook (`compress_block_batch`:
+lz78, lzw) codes all blocks at once where its gate says so; every other
+block goes through the port's driver with raw=True, which wraps it with
+the inner's input restrictions. Decoding mirrors it: encode(huff) on the
+device, every other block through the driver, one after another (the JAX
+package's thread pool decodes 8 KiB blocks 3-8x slower, PERF.md
+section 5).
 
-The input is split into fixed-size blocks, each block is coded on its own,
-and the streams are framed in the TBK1 container (tudocomp_tpu's
-parallel/blocks.py), so the bytes equal the JAX package's. The device
-stages run on the registry's device (device.use_device decides, with the
-TDC_DEVICE_HUFF override); otherwise each block goes through the host
-coder. Only encode(huff) is ported as the inner compressor, and only with
-per-block tables.
+Not ported yet: shared=1, which only encode(huff) reads, and a blockwise
+inner.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from tudocomp_tpu.base import Compressor
 from tudocomp_tpu.io.inout import Input, Output
@@ -23,7 +31,7 @@ from tudocomp_tpu.stats.phase import StatPhase
 
 from ..device import use_device
 
-_SLICE = ("encode(coder=huff)", "encode(huff)")
+_HUFF = ("encode(coder=huff)", "encode(huff)")
 
 
 class BlockwiseCompressor(Compressor):
@@ -37,49 +45,58 @@ class BlockwiseCompressor(Compressor):
 
     def _inner(self):
         av = self.env.option("inner").as_algorithm()
-        if av.id_string() not in _SLICE:
+        if av.name == "blockwise":
             raise NotImplementedError(
-                f"blockwise({av.id_string()}) is not ported yet; only encode(huff) is "
-                "(ROADMAP.md, Queue 1 items 6-10)"
+                "blockwise as the inner compressor is not ported yet (ROADMAP.md, Queue 1 item 1)"
             )
-        if self.env.option("shared").as_integer():
-            raise NotImplementedError(
-                "shared Huffman tables are not ported yet (ROADMAP.md, Queue 1 item 2)"
-            )
-        return self.env.registry.select_algorithm(av, "compressor")
+        return self.env.registry.select_algorithm(av, "compressor"), av
 
     def compress(self, inp: Input, out: Output) -> None:
         bs = self.env.option("bs").as_integer()
-        inner = self._inner()
+        comp, av = self._inner()
         data = inp.as_array()
         device = self.env.registry.device
-        if use_device("TDC_DEVICE_HUFF", device):
-            from ..parallel.runtime import blockwise_huffman_compress
+        if av.id_string() in _HUFF:
+            if self.env.option("shared").as_integer():
+                raise NotImplementedError(
+                    "shared Huffman tables are not ported yet (ROADMAP.md, Queue 1 item 2)"
+                )
+            if use_device("TDC_DEVICE_HUFF", device):
+                from ..parallel.runtime import blockwise_huffman_compress
 
-            with StatPhase("device blockwise encode") as ph:
-                ph.log("bs", bs)
-                out.write(blockwise_huffman_compress(data, bs, device))
-            return
-        with StatPhase("host blockwise encode") as ph:
-            blocks, n_valid = split_blocks(data, bs)
-            payloads = []
-            for block, nv in zip(blocks, n_valid):
-                o = Output()
-                inner.compress(Input(block[:nv]), o)
-                payloads.append(o.raw_value())
-            ph.log("blocks", len(payloads))
-            out.write(frame_streams(payloads, bs))
+                with StatPhase("device blockwise encode") as ph:
+                    ph.log("bs", bs)
+                    out.write(blockwise_huffman_compress(data, bs, device))
+                return
+        blocks, n_valid = split_blocks(data, bs)
+        batch = getattr(comp, "compress_block_batch", None)
+        payloads = batch(blocks, n_valid) if batch is not None else None
+        if payloads is None:
+            from ..driver import compress
+
+            with StatPhase("host blockwise encode") as ph:
+                inner_id = av.id_string()
+                payloads = [
+                    compress(inner_id, bytes(block[:nv]), raw=True, registry=self.env.registry)
+                    for block, nv in zip(blocks, n_valid)
+                ]
+                ph.log("blocks", len(payloads))
+        out.write(frame_streams(payloads, bs))
 
     def decompress(self, inp: Input, out: Output) -> None:
-        inner = self._inner()
+        _, av = self._inner()
         device = self.env.registry.device
-        if use_device("TDC_DEVICE_HUFF", device):
+        if av.id_string() in _HUFF and use_device("TDC_DEVICE_HUFF", device):
             from ..parallel.runtime import blockwise_huffman_decompress
 
             with StatPhase("device blockwise decode"):
                 out.write(blockwise_huffman_decompress(inp.as_bytes(), device))
             return
+        from ..driver import decompress
+
+        _, payloads = unframe_streams(inp.as_bytes())
+        inner_id = av.id_string()
         with StatPhase("blockwise decode"):
-            _, payloads = unframe_streams(inp.as_bytes())
             for p in payloads:
-                inner.decompress(Input(p), out)
+                part = decompress(p, id_string=inner_id, raw=True, registry=self.env.registry)
+                out.write(np.frombuffer(part, np.uint8))

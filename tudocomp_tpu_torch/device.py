@@ -5,10 +5,12 @@ through the hand-written kernels; a CPU device runs the same stages through
 the kernels' plain PyTorch versions. Asking for CUDA where there is no card
 raises: nothing moves to the CPU on its own.
 
-Per-stage override, as in the JAX package: TDC_DEVICE_HUFF=1 forces the
+Per-stage overrides, as in the JAX package: TDC_DEVICE_HUFF=1 forces the
 device stages of the Huffman path (on whichever device was given), =0
-forces the host coder. Unset, the device stages run on a CUDA device and
-the host coder on the CPU.
+forces the host coder; TDC_DEVICE_LZ78 does the same for the blockwise
+LZ78/LZW parse. Unset, the device stages run on a CUDA device and the host
+paths on the CPU. The blockwise parse has a size gate on top
+(use_parse_device).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 
 import torch
 
-__all__ = ["resolve", "use_device"]
+__all__ = ["resolve", "use_device", "use_parse_device"]
 
 
 def resolve(device) -> torch.device:
@@ -45,3 +47,20 @@ def use_device(env_var: str, device: torch.device) -> bool:
     if v == "0":
         return False
     return device.type == "cuda"
+
+
+# Largest block the device parse takes, lz78 and lzw alike; larger blocks
+# take the host parse. The kernels run one thread per block, so their time
+# grows with the block while the host's does not. Encoding 50 MiB of English
+# text on an H100 (700 W), the device parse is 1.3-2.1x faster than the host
+# parse at 8 KiB to 1 MiB blocks; at 4 MiB one run has it ahead and another
+# behind (PERF.md section 7). The JAX package's caps (lz78 256 KiB, lzw
+# 8 KiB) were the TPU's VMEM limits.
+PARSE_MAX_BS = 1 << 20
+
+
+def use_parse_device(bs: int, device: torch.device) -> bool:
+    """Should the blockwise LZ78/LZW parse of blocks of `bs` bytes run its
+    device version on `device`? TDC_DEVICE_LZ78 as in use_device, within
+    PARSE_MAX_BS."""
+    return bs <= PARSE_MAX_BS and use_device("TDC_DEVICE_LZ78", device)

@@ -4,7 +4,8 @@ The same flow as tudocomp_tpu/driver.py (tudocomp_driver.cpp:252-345): on
 compress, write the id string and '%', wrap the input with the
 compressor's restrictions and run it; on decompress, read the header up to
 '%' (at most 1023 bytes), select the algorithm, wrap the output and run it.
-The algorithms come from a TorchRegistry bound to `device`.
+The algorithms come from a TorchRegistry bound to `device`, or from the
+`registry` given, whose device then wins.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ from .registry import TorchRegistry
 __all__ = ["compress", "decompress"]
 
 
-def compress(id_string: str, data, device="cuda", raw: bool = False) -> bytes:
-    reg = TorchRegistry(device)
+def compress(
+    id_string: str, data, device="cuda", raw: bool = False, registry: Optional[TorchRegistry] = None
+) -> bytes:
+    reg = registry or TorchRegistry(device)
     av = reg.parse_algorithm_id(id_string, "compressor")
     comp = reg.select_algorithm(av, "compressor")
     rest = comp.meta().input_restrictions
@@ -36,8 +39,14 @@ def compress(id_string: str, data, device="cuda", raw: bool = False) -> bytes:
     return out.raw_value()
 
 
-def decompress(data, device="cuda", id_string: Optional[str] = None, raw: bool = False) -> bytes:
-    reg = TorchRegistry(device)
+def decompress(
+    data,
+    device="cuda",
+    id_string: Optional[str] = None,
+    raw: bool = False,
+    registry: Optional[TorchRegistry] = None,
+) -> bytes:
+    reg = registry or TorchRegistry(device)
     inp = Input(data)
     if not raw:
         arr = inp.raw_array()

@@ -1,10 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in `csrc/*.cu` are compiled with `nvcc` for Hopper (`sm_90a`)
-into one shared library with a plain C interface, which is loaded with
-ctypes. The library lands in `build/tudocomp_tpu_torch/` at the repository
-root (git-ignored), named by a hash of the sources and the flags, so a
-change to either rebuilds. Nothing here runs at import: the first launch
+The sources in `csrc/*.cu` are compiled with `nvcc` for Hopper (`sm_90a`),
+one `nvcc` per source, all started together, and linked into one shared
+library with a plain C interface, which is loaded with ctypes. The library
+lands in `build/tudocomp_tpu_torch/` at the repository root (git-ignored),
+named by a hash of the sources and the flags, so a change to either
+rebuilds. Nothing here runs at import: the first launch
 builds, and code on the CPU never reaches this module's build.
 
 Every launch goes through `launch`, which passes PyTorch's current stream,
@@ -31,7 +32,7 @@ _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tudocomp_tpu_torch")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -48,6 +49,8 @@ KERNELS = {
     ),
     "tdc_huffman_tables": ("huffman_tables", [_P, _I, _P, _P, _P, _P, _P, _P, _P]),
     "tdc_decode_payloads": ("decode_payloads", [_P, _L, _P, _P, _P, _P, _I, _P, _L, _P, _P]),
+    "tdc_lz78_parse": ("lz78_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P, _P]),
+    "tdc_lzw_parse": ("lzw_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P]),
 }
 
 _counts = {name: 0 for name, _ in KERNELS.values()}
@@ -84,11 +87,29 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *_sources()], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, so)
+    tmp = f"{so}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    procs = [
+        subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    errors = []
+    for p in procs:
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{' '.join(p.args)} ({p.returncode}):\n{err}")
+    if not errors:
+        r = subprocess.run([_nvcc(), *_FLAGS, "-shared", "-o", f"{tmp}.so", *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            errors.append(f"link ({r.returncode}):\n{r.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    os.replace(f"{tmp}.so", so)
     return so
 
 
