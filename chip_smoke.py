@@ -3,55 +3,72 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout and needs one CUDA card. Phases, one JSON
-line each:
+Runs from the root of a checkout and needs one CUDA card. The reference
+of every phase is the port's own host path: driver.compress(algo, data,
+device="cpu") and decompress(container, device="cpu") with
+TDC_DEVICE_HUFF=0 and TDC_DEVICE_LZ78=0, which run the port's copies of the
+host coders and parses (tier-1 holds those byte-equal to the JAX package on
+the CPU). Phases, one JSON line each:
   1. build          compile the CUDA kernels from tudocomp_tpu_torch/csrc,
-                    one nvcc per source, in parallel;
+                    one nvcc per source, in parallel, and the C++ host
+                    helpers (g++) beside them;
   2. kernels        kernels A-D against their plain PyTorch versions on the
                     card, at the shapes of the Huffman path, held to exact
                     equality (every stage is integer arithmetic);
   3. roundtrip      a seeded 256 MiB input through
                     driver.compress / decompress("blockwise(encode(huff))",
                     device="cuda"); the container must equal, byte for byte,
-                    the one the JAX package's host path writes
-                    (tudocomp_tpu.driver, which runs without jax), and both
-                    decoders must return the input; kernels A-D must have
-                    been launched;
+                    the one the host path writes, and both decoders must
+                    return the input; kernels A-D must have been launched;
   4. timing         CUDA-event times of kernels A-D and their plain versions,
                     and the end-to-end encode / decode rates of the roundtrip;
-  5. lz78 kernels   kernels E (LZ78 parse) and F (LZW parse) against their
+  5. shared         kernel G (Moffat phases 1-2, int64) against its plain
+                    version, exactly, on the summed histogram of the 256 MiB
+                    input, on phase 2's 69 histograms and on a row with
+                    weights past 2^31; the 256 MiB input through
+                    blockwise(encode(huff),shared=1) on the card, decoded
+                    on the card and by the host decoder, block 0's table
+                    holding Kraft's equality, G, A, B and D launched; the
+                    card's container of a 16 MiB prefix equal to the port's
+                    CPU run (plain versions); G's times, and the warm
+                    encode / decode rates with and without shared;
+  6. lz78 kernels   kernels E (LZ78 parse) and F (LZW parse) against their
                     plain versions and the host parses, exactly, at the
-                    shapes phase 6 launches them with (the whole input as
+                    shapes phase 7 launches them with (the whole input as
                     [200, 262144] and [6400, 8192]), at [128, 8192] and at
                     an odd batch of 131 blocks;
-  6. lz78 roundtrip 50 MiB of bench.py's English stand-in through
+  7. lz78 roundtrip 50 MiB of bench.py's English stand-in through
                     blockwise(lz78(coder=bit)) (bs 256 KiB),
                     blockwise(lz78(coder=bit),bs=8192) and
                     blockwise(lzw(coder=bit),bs=8192) on the card; each
-                    container must equal the JAX package's host path's and
-                    both decoders must return the input; E and F must have
-                    been launched;
-  7. lz78 timing    the device parse of phase 6's blocks against the host
+                    container must equal the host path's and both decoders
+                    must return the input; E and F must have been launched;
+  8. lz78 timing    the device parse of phase 7's blocks against the host
                     parse of the same blocks, the stages of each lz78/lzw
                     encode and decode, the end-to-end rates, and the encode
                     at the parse gate's largest block and at four times it,
                     with the device parse and with the host parse.
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels, and the final line {"ok": true, "device": {...}}. Any failure
-raises: the script then exits non-zero and prints no final line. jax is
-blocked from import for the whole run.
+kernels (each with its launches on its path, its bound and its plain
+version's time), and the final line {"ok": true, "device": {...}}. Any
+failure raises: the script then exits non-zero and prints no final line.
+jax and the JAX package (tudocomp_tpu) are blocked from import for the
+whole run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
-sys.modules["jax"] = None  # the port and the reference host path run without jax
+sys.modules["jax"] = None  # the port runs without jax
+sys.modules["tudocomp_tpu"] = None  # and without the JAX package
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MIB = 1 << 20
@@ -61,6 +78,8 @@ DEC_BS = 1 << 14  # bench.py's decode streams: 16 KiB
 ROUNDTRIP_BYTES = 256 * MIB
 TEXT_BYTES = 16 * MIB
 ALGO = "blockwise(encode(huff))"
+SHARED_ALGO = "blockwise(encode(huff),shared=1)"
+SHARED_PREFIX = 16 * MIB  # where the JAX package's int32 sort key wraps (counts >= 2^22)
 LZ78_BYTES = 50 * MIB  # BASELINE config 2's english.50MB, as bench.py synthesizes it
 LZ78_ALGOS = {  # id -> (block size, the kernel of its parse)
     "blockwise(lz78(coder=bit))": (BS, "lz78_parse"),
@@ -68,6 +87,15 @@ LZ78_ALGOS = {  # id -> (block size, the kernel of its parse)
     "blockwise(lzw(coder=bit),bs=8192)": (8192, "lzw_parse"),
 }
 HUFF_KERNELS = ("pack_blocks", "pack_bytes_blocks", "huffman_tables", "decode_payloads")
+SHARED_KERNELS = ("moffat_phase12", "pack_blocks", "pack_bytes_blocks", "decode_payloads")
+# the least time the card could take: bytes over the HBM3 rate and
+# operations over the rate outside the tensor cores, the larger of the two
+# (NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s in float32
+# outside the tensor cores; the float32 figure stands for the integer work
+# of these kernels, whose own peak is lower, so the bound is if anything
+# low)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 
 KERNEL_INFO = {
     "pack_blocks": (
@@ -81,6 +109,10 @@ KERNEL_INFO = {
     "huffman_tables": (
         "tudocomp_tpu_torch/csrc/tables.cu",
         "tudocomp_tpu/ops/pallas_kernels.py:100",
+    ),
+    "moffat_phase12": (
+        "tudocomp_tpu_torch/csrc/tables.cu",
+        "tudocomp_tpu/ops/pallas_kernels.py:20",
     ),
     "decode_payloads": (
         "tudocomp_tpu_torch/csrc/decode.cu",
@@ -131,24 +163,120 @@ def text_bytes(n: int):
 
 
 def english_bytes(n: int):
-    """bench.py's stand-in for Pizza&Chili english (etc/datasets.py, seed 7)."""
+    """bench.py's stand-in for Pizza&Chili english: a copy of
+    etc/datasets.py:synth_english, seed 7 (uniform words, 10% sentence
+    breaks)."""
     import numpy as np
 
-    sys.path.insert(0, os.path.join(ROOT, "etc"))
-    from datasets import synth_english
+    rng = np.random.default_rng(7)
+    words = [w.encode() for w in (
+        "the quick brown fox jumps over lazy dog compression suffix array "
+        "grammar factorization entropy huffman lempel ziv welch text data "
+        "structure algorithm framework parallel device kernel"
+    ).split()]
+    seps = (b". ", b" ")
+    avg = sum(len(w) for w in words) / len(words) + 1.1
+    parts, total = [], 0
+    while total < n:
+        est = max(16, int((n - total) / avg) + 16)
+        ids = rng.integers(0, len(words), est)
+        dots = rng.random(est) <= 0.1
+        chunk = b"".join(words[i] + seps[0 if d else 1] for i, d in zip(ids, dots))
+        parts.append(chunk)
+        total += len(chunk)
+    return np.frombuffer(b"".join(parts)[:n], np.uint8)
 
-    return np.frombuffer(synth_english(np.random.default_rng(7), n), np.uint8)
+
+@contextlib.contextmanager
+def host_path():
+    """The port's host coders and parses: no device stage runs (an id with
+    shared=1 takes the kernels' plain versions on the CPU)."""
+    os.environ.update(TDC_DEVICE_HUFF="0", TDC_DEVICE_LZ78="0")
+    try:
+        yield
+    finally:
+        for var in ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78"):
+            del os.environ[var]
 
 
 def ref_compress(algo: str, data: bytes) -> bytes:
-    """The JAX package's host path, one block after another."""
-    from tudocomp_tpu.driver import compress as host_compress
+    """The reference container: the port's host path."""
+    from tudocomp_tpu_torch.driver import compress
 
-    os.environ["TDC_BLOCKWISE_PROCS"] = "0"
-    try:
-        return host_compress(algo, data)
-    finally:
-        del os.environ["TDC_BLOCKWISE_PROCS"]
+    with host_path():
+        return compress(algo, data, device="cpu")
+
+
+def ref_decompress(container: bytes) -> bytes:
+    """The reference decode: the port's host decoders."""
+    from tudocomp_tpu_torch.driver import decompress
+
+    with host_path():
+        return decompress(container, device="cpu")
+
+
+def no_jax() -> None:
+    loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "tudocomp_tpu")]
+    if loaded:
+        raise AssertionError(f"imported: {loaded}")
+
+
+def nbytes(x) -> int:
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(y) for y in x)
+    return 0
+
+
+def kernel_ops(name: str, args) -> int:
+    """Integer operations the kernel does on these inputs, counted per
+    element at a few operations each (a lower estimate)."""
+    import torch
+
+    if name == "pack_blocks":  # per token: prefix sum, mask, two shifts, two ORs
+        return 8 * args[1].numel()
+    if name == "pack_bytes_blocks":  # per live byte: lookups, prefix sum, shifts, ORs
+        return 10 * int(args[1].to(torch.int64).sum())
+    if name == "huffman_tables":  # per table: two 256 x 256 ranks, Moffat, depths
+        return args[0].shape[0] * (2 * 256 * 256 + 16 * 254 + 2 * 33 * 256)
+    if name == "decode_payloads":  # per stream bit: a shift and a compare per length tried
+        return 3 * int(args[1].to(torch.int64).sum())
+    if name in ("lz78_parse", "lzw_parse"):  # per byte: hash, probe, compare, insert
+        return 10 * int(args[1].to(torch.int64).sum())
+    if name == "moffat_phase12":  # per step of the chain: two reads, compares, writes
+        return 16 * int((args[1].to(torch.int64) - 2).clamp(min=0).sum())
+    raise KeyError(name)
+
+
+def kernel_bytes(name: str, args, out) -> int:
+    """Bytes the function must move: each input read once, each output
+    written once. The pack kernels count their blocks' valid bytes and the
+    32-bit words their bits fill, not the arenas' allocated size (kernel B's
+    is sized for 9 bits a byte, kernel A's for 32 bits a token)."""
+    import torch
+
+    def filled(bits):  # bytes of the words that `bits` [B] fill
+        return 4 * int(((bits.to(torch.int64) + 31) // 32).sum())
+
+    if name == "pack_blocks":
+        values, nbits, _ = args
+        return nbytes((values, nbits)) + filled(out[1]) + nbytes(out[1])
+    if name == "pack_bytes_blocks":
+        _, n_valid, tbl_v, tbl_nb, _, hdr_bits, _ = args
+        live = int(n_valid.to(torch.int64).sum())
+        return live + nbytes((n_valid, tbl_v, tbl_nb, hdr_bits)) + filled(hdr_bits) + filled(out[1]) + nbytes(out[1])
+    return nbytes(args) + nbytes(out)
+
+
+def bound(name: str, args, out) -> dict:
+    """bound_ms: the larger of bytes (kernel_bytes) over PEAK_BYTES_PER_S
+    and operations over PEAK_OPS_PER_S."""
+    t_bytes = kernel_bytes(name, args, out) / PEAK_BYTES_PER_S * 1e3
+    t_ops = kernel_ops(name, args) / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def max_abs_err(got, want) -> int:
@@ -230,10 +358,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. build ---------------------------------------------------------------
+    from tudocomp_tpu_torch import native
+
     t0 = time.perf_counter()
+    host = threading.Thread(target=native.get_lib)  # g++ beside the nvcc builds
+    host.start()
     so = kernels.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(so, ROOT), "card": gpu})
+    t1 = time.perf_counter()
+    host.join()
+    host_lib = native.get_lib()
+    if host_lib is None:
+        raise RuntimeError("the C++ host helpers did not build (g++)")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels_seconds": t1 - t0,
+          "library": os.path.relpath(so, ROOT), "host_library": os.path.relpath(host_lib._name, ROOT),
+          "card": gpu})
 
     # 2. kernels against their plain versions, main-path shapes ---------------
     n_words = (9 * BS + 4096 + 31) // 32
@@ -278,7 +416,7 @@ def main() -> int:
     errs["pack_bytes_blocks"] = max_abs_err(bc.pack_bytes_blocks(*b_args), bc.pack_bytes_blocks_plain(*b_args))
     cases["pack_bytes_blocks"] = (b_args, bc.pack_bytes_blocks, bc.pack_bytes_blocks_plain)
 
-    from tudocomp_tpu.parallel.blocks import unframe_streams
+    from tudocomp_tpu_torch.parallel.blocks import unframe_streams
     from tudocomp_tpu_torch.parallel.runtime import blockwise_huffman_compress
 
     dec_raw = batch.reshape(-1)[: 16 * MIB].tobytes()
@@ -307,7 +445,6 @@ def main() -> int:
     emit({"phase": "kernels", "max_abs_err": errs, "tolerance": 0, "streams": len(payloads), "card": gpu})
 
     # 3. roundtrip through the public entry points ----------------------------
-    from tudocomp_tpu.driver import decompress as host_decompress
     from tudocomp_tpu_torch.driver import compress, decompress
 
     data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
@@ -329,12 +466,11 @@ def main() -> int:
     ref = ref_compress(ALGO, data)
     t4 = time.perf_counter()
     if container != ref:
-        raise AssertionError("container differs from the JAX package's host path")
-    if host_decompress(container) != data:
-        raise AssertionError("the JAX package's host decode of the container differs from the input")
+        raise AssertionError("container differs from the host path's")
+    if ref_decompress(container) != data:
+        raise AssertionError("the host decode of the container differs from the input")
     t5 = time.perf_counter()
-    if sys.modules.get("jax") is not None:
-        raise AssertionError("jax was imported")
+    no_jax()
     emit({"phase": "roundtrip", "bytes": len(data), "container_bytes": len(container),
           "ratio": len(container) / len(data), "launches": launches,
           "first_encode_s": t1 - t0, "first_decode_s": t2 - t1,
@@ -347,6 +483,7 @@ def main() -> int:
         timing[name] = {
             "ms": cuda_ms(lambda: kernel(*args)),
             "plain_ms": cuda_ms(lambda: plain(*args), budget_ms=2000.0, max_iters=10),
+            **bound(name, args, kernel(*args)),
         }
     t0 = time.perf_counter()
     container = compress(ALGO, data, device="cuda")
@@ -362,9 +499,17 @@ def main() -> int:
           "decode_s": t2 - t1, "decode_GBps": len(data) / (t2 - t1) / 1e9,
           "card": gpu})
 
-    del data, back, container, ref
+    del back, container, ref
 
-    # 5-7. the LZ78/LZW block parse -------------------------------------------
+    # 5. the shared table -----------------------------------------------------
+    err_g, timing_g, launches_g = shared_phase(data, hists_all, dev, gpu)
+    errs["moffat_phase12"] = err_g
+    timing["moffat_phase12"] = timing_g
+    launches["moffat_phase12"] = launches_g
+    del data
+    torch.cuda.empty_cache()
+
+    # 6-8. the LZ78/LZW block parse -------------------------------------------
     text = english_bytes(LZ78_BYTES)
     errs_e, timing_e = lz78_kernel_phase(text, dev, gpu)
     errs.update(errs_e)
@@ -375,8 +520,7 @@ def main() -> int:
     print(gpu)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+         "launches": launches[name], "max_abs_err": errs[name], **timing[name], "library_ms": None}
         for name, (src, rep) in KERNEL_INFO.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -384,9 +528,151 @@ def main() -> int:
     return 0
 
 
+def block0_kraft(container: bytes) -> bool:
+    """Kraft's equality over the code lengths in block 0's table header."""
+    from tudocomp_tpu_torch.coders.huffman import read_table
+    from tudocomp_tpu_torch.io.bitio import BitReader
+    from tudocomp_tpu_torch.parallel.blocks import unframe_streams
+
+    r = BitReader(unframe_streams(container[container.index(b"%") + 1 :])[1][0])
+    if not r.read_bit():
+        raise AssertionError("block 0 has no table")
+    t = read_table(r)
+    return sum(int(n) << (t.longest - l) for l, n in enumerate(t.numl, 1)) == 1 << t.longest
+
+
+def encode_stages(data: bytes, dev, shared: bool) -> dict:
+    """Host seconds of each stage of the runtime's encode, per-block or
+    shared, the card synchronized after each (the input copied whole, as
+    the shared path's pass 1 keeps it)."""
+    import torch
+
+    from tudocomp_tpu_torch.ops import huffman_torch as ht
+    from tudocomp_tpu_torch.ops.bitpack import finalize_stream
+    from tudocomp_tpu_torch.parallel.blocks import frame_streams, split_blocks
+
+    n_words = (9 * BS + 4096 + 31) // 32
+    st = {}
+    (blocks, n_valid), st["split_blocks"] = synced(lambda: split_blocks(data, BS))
+    batches, st["copy to the card"] = synced(lambda: [
+        (torch.from_numpy(blocks[lo : lo + BENCH_BLOCKS]).to(dev),
+         torch.from_numpy(n_valid[lo : lo + BENCH_BLOCKS]).to(dev))
+        for lo in range(0, len(blocks), BENCH_BLOCKS)])
+    if shared:
+        total, st["histograms, summed"] = synced(
+            lambda: sum(ht.block_histograms(b, nv).sum(0, dtype=torch.int64) for b, nv in batches))
+        tables, st["one table (sort, kernel G, phase 3, codes)"] = synced(lambda: ht.shared_tables(total))
+        out, st["encode (kernels A, B)"] = synced(
+            lambda: [ht.encode_blocks(b, nv, n_words, shared_table=tables) for b, nv in batches])
+    else:
+        out, st["encode (histogram, kernels C, A, B)"] = synced(
+            lambda: [ht.encode_blocks(b, nv, n_words) for b, nv in batches])
+
+    def back():
+        res = []
+        for words, bits in out:
+            bits = bits.cpu().numpy()
+            res.append((words[:, : (int(bits.max()) + 31) // 32].cpu().numpy(), bits))
+        return res
+
+    host, st["arenas back"] = synced(back)
+    payloads, st["finalize_stream"] = synced(
+        lambda: [finalize_stream(w[i], int(b[i])) for w, b in host for i in range(len(b))])
+    _, st["frame_streams"] = synced(lambda: frame_streams(payloads, BS))
+    st["total"] = sum(st.values())
+    return st
+
+
+def shared_phase(data: bytes, hists69, dev, gpu):
+    """Phase 5: kernel G against its plain version on three inputs, the
+    256 MiB shared-table roundtrip on the card and through the host
+    decoder, the 16 MiB prefix against the port's CPU run, G's times, and
+    the warm end-to-end rates with and without shared. Returns (G's
+    max_abs_err, its line entries, its launches in the roundtrip)."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.driver import compress, decompress
+    from tudocomp_tpu_torch.ops import huffman_torch as ht
+    from tudocomp_tpu_torch.ops import table_kernels as tk
+    from tudocomp_tpu_torch.parallel.blocks import split_blocks
+
+    # the summed histogram of the whole input, as the runtime's pass 1 takes it
+    blocks, n_valid = split_blocks(data, BS)
+    (b, nv), h2d_s = synced(lambda: (torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)))
+    total = sum(ht.block_histograms(b[lo : lo + BENCH_BLOCKS], nv[lo : lo + BENCH_BLOCKS]).sum(0, dtype=torch.int64)
+                for lo in range(0, len(b), BENCH_BLOCKS))
+    del b, nv
+    cases = {
+        "summed [1, 256]": total[None],
+        "phase 2's [69, 256]": hists69,
+        "past 2^31 [1, 256]": total[None] * 1024,
+    }
+    report, err = {}, 0
+    for name, hists in cases.items():
+        args = ht._sort_hist(hists)[:2]
+        got = tk.moffat_phase12(*args)
+        e = max_abs_err(got, tk.moffat_phase12_plain(*args))
+        err = max(err, e)
+        report[name] = {"max_abs_err": e, "max_weight": int(args[0].max()), "sigma": int(args[1].max())}
+    if int(cases["past 2^31 [1, 256]"].max()) < 1 << 31:
+        raise AssertionError("the third row has no weight past 2^31")
+    if err:
+        raise AssertionError(f"kernel G differs from its plain version: {report}")
+    args = ht._sort_hist(cases["summed [1, 256]"])[:2]
+    line = {"ms": cuda_ms(lambda: tk.moffat_phase12(*args)),
+            "plain_ms": cuda_ms(lambda: tk.moffat_phase12_plain(*args), budget_ms=2000.0, max_iters=10),
+            **bound("moffat_phase12", args, tk.moffat_phase12(*args))}
+
+    # the roundtrip through the public entry points
+    kernels.reset_counts()
+    container, enc_s = synced(lambda: compress(SHARED_ALGO, data, device="cuda"))
+    back, dec_s = synced(lambda: decompress(container, device="cuda"))
+    launches = kernels.counts()
+    if back != data:
+        raise AssertionError("shared: device roundtrip differs from the input")
+    missing = [k for k in SHARED_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"shared: kernels never launched on the path: {missing}")
+    if not block0_kraft(container):
+        raise AssertionError("shared: block 0's code lengths break Kraft's equality")
+    host_back, host_dec_s = synced(lambda: ref_decompress(container))
+    if host_back != data:
+        raise AssertionError("shared: the host decode differs from the input")
+    del back, host_back
+    prefix = data[:SHARED_PREFIX]
+    if int(np.bincount(np.frombuffer(prefix, np.uint8), minlength=256).max()) < 1 << 22:
+        raise AssertionError("the prefix has no count of 2^22 or more")
+    on_card = compress(SHARED_ALGO, prefix, device="cuda")
+    on_cpu, cpu_s = synced(lambda: compress(SHARED_ALGO, prefix, device="cpu"))
+    if on_card != on_cpu:
+        raise AssertionError("shared: the 16 MiB prefix's container differs from the CPU run's")
+    no_jax()
+
+    # warm rates, in turns: per-block, shared, shared, per-block
+    rates = {}
+    for algo in (ALGO, SHARED_ALGO, SHARED_ALGO, ALGO):
+        c, e = synced(lambda: compress(algo, data, device="cuda"))
+        d, dd = synced(lambda: decompress(c, device="cuda"))
+        if d != data:
+            raise AssertionError(f"{algo}: warm roundtrip differs from the input")
+        r = rates.setdefault(algo, {"encode_GBps": [], "decode_GBps": [], "ratio": len(c) / len(data)})
+        r["encode_GBps"].append(len(data) / e / 1e9)
+        r["decode_GBps"].append(len(data) / dd / 1e9)
+        del c, d
+    stages = {"per-block": encode_stages(data, dev, False), "shared": encode_stages(data, dev, True)}
+    emit({"phase": "shared", "moffat_phase12": report, "moffat_phase12_line": line, "encode_stages": stages,
+          "launches": launches, "bytes": len(data), "container_bytes": len(container),
+          "ratio": len(container) / len(data), "first_encode_s": enc_s, "first_decode_s": dec_s,
+          "host_decode_s": host_dec_s, "input_to_card_s": h2d_s,
+          "prefix_bytes": len(prefix), "prefix_cpu_encode_s": cpu_s, "warm": rates, "card": gpu})
+    return err, line, launches["moffat_phase12"]
+
+
 def _parse_fns(kernel: str):
-    from tudocomp_tpu.compressors.lz78 import lz78_parse
-    from tudocomp_tpu.compressors.lzw import lzw_parse
+    from tudocomp_tpu_torch.compressors.lz78 import lz78_parse
+    from tudocomp_tpu_torch.compressors.lzw import lzw_parse
     from tudocomp_tpu_torch.ops import lz78_cuda as lc
 
     if kernel == "lz78_parse":
@@ -412,13 +698,13 @@ def _same(a, b) -> bool:
 
 
 def lz78_kernel_phase(text, dev, gpu):
-    """Phase 5: E and F against their plain versions and the host parses, at
-    the main path's shapes (the whole input, split as phase 6 splits it) and
+    """Phase 6: E and F against their plain versions and the host parses, at
+    the main path's shapes (the whole input, split as phase 7 splits it) and
     at odd ones. The kernels line takes the times at [6400, 8192]."""
     import numpy as np
     import torch
 
-    from tudocomp_tpu.parallel.blocks import split_blocks
+    from tudocomp_tpu_torch.parallel.blocks import split_blocks
 
     def batch(lo: int, B: int, bs: int):
         return text[lo : lo + B * bs].reshape(B, bs).copy(), np.full(B, bs, np.int32)
@@ -462,7 +748,7 @@ def lz78_kernel_phase(text, dev, gpu):
                         "blocks_ending_mid_phrase": mid}
         errs[kname] = max(errs[kname], err)
         if name == line_case[kname]:
-            timing[kname] = {"ms": ms, "plain_ms": plain_ms}
+            timing[kname] = {"ms": ms, "plain_ms": plain_ms, **bound(kname, (b, nv), got)}
         del b, nv, got, want
     torch.cuda.empty_cache()
     emit({"phase": "lz78 kernels", "max_abs_err": errs, "tolerance": 0, "cases": report, "card": gpu})
@@ -470,12 +756,10 @@ def lz78_kernel_phase(text, dev, gpu):
 
 
 def lz78_roundtrip_phase(data: bytes, gpu) -> dict:
-    """Phase 6: the three ids on the card against the JAX package's host path."""
+    """Phase 7: the three ids on the card against the host path."""
     import torch
 
-    from tudocomp_tpu import native
-    from tudocomp_tpu.driver import decompress as host_decompress
-    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch import kernels, native
     from tudocomp_tpu_torch.driver import compress, decompress
 
     launches = {"lz78_parse": 0, "lzw_parse": 0}
@@ -493,12 +777,11 @@ def lz78_roundtrip_phase(data: bytes, gpu) -> dict:
         ref = ref_compress(algo, data)
         t1 = time.perf_counter()
         if container != ref:
-            raise AssertionError(f"{algo}: container differs from the JAX package's host path")
-        if host_decompress(container) != data:
-            raise AssertionError(f"{algo}: the JAX package's host decode differs from the input")
+            raise AssertionError(f"{algo}: container differs from the host path's")
+        if ref_decompress(container) != data:
+            raise AssertionError(f"{algo}: the host decode differs from the input")
         t2 = time.perf_counter()
-        if sys.modules.get("jax") is not None:
-            raise AssertionError("jax was imported")
+        no_jax()
         emit({"phase": "lz78 roundtrip", "algo": algo, "bytes": len(data),
               "blocks": -(-len(data) // bs), "container_bytes": len(container),
               "ratio": len(container) / len(data), "launches": {kname: n},
@@ -516,10 +799,10 @@ def _stages(data: bytes, algo: str, dev) -> dict:
     import numpy as np
     import torch
 
-    from tudocomp_tpu.compressors.lz78 import lz78_expand
-    from tudocomp_tpu.compressors.lzw import lzw_expand
-    from tudocomp_tpu.parallel.blocks import frame_streams, split_blocks, unframe_streams
+    from tudocomp_tpu_torch.compressors.lz78 import lz78_expand
+    from tudocomp_tpu_torch.compressors.lzw import lzw_expand
     from tudocomp_tpu_torch.driver import decompress
+    from tudocomp_tpu_torch.parallel.blocks import frame_streams, split_blocks, unframe_streams
     from tudocomp_tpu_torch.registry import TorchRegistry
 
     bs, kname = LZ78_ALGOS[algo]
@@ -566,16 +849,16 @@ def _stages(data: bytes, algo: str, dev) -> dict:
 
 
 def lz78_timing_phase(text, dev, gpu) -> None:
-    """Phase 7: the device parse of the roundtrip's blocks (copies included)
+    """Phase 8: the device parse of the roundtrip's blocks (copies included)
     against the host parse of the same blocks, the stage breakdowns, warm
     end-to-end rates, and the encode with the device parse and with the
     host parse at the parse gate's largest block (device.PARSE_MAX_BS) and
     at four times that."""
-    from tudocomp_tpu.parallel.blocks import split_blocks
     from tudocomp_tpu_torch import device as tdev
     from tudocomp_tpu_torch import kernels
     from tudocomp_tpu_torch.driver import compress, decompress
     from tudocomp_tpu_torch.ops import lz78_cuda as lc
+    from tudocomp_tpu_torch.parallel.blocks import split_blocks
 
     import torch
 
@@ -585,12 +868,10 @@ def lz78_timing_phase(text, dev, gpu) -> None:
         host = _parse_fns(kname)[2]
         blocks, n_valid = split_blocks(data, bs)
         helper = lc.lz78_parse_blocks_device if kname == "lz78_parse" else lc.lzw_parse_blocks_device
-        host_s = {}
-        for trie in ("ternary", "hash"):  # the compressors' default trie, and tdc_lz78_parse's hash
-            t0 = time.perf_counter()
-            for i in range(len(blocks)):
-                host(blocks[i, : n_valid[i]], trie)
-            host_s[trie] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(len(blocks)):
+            host(blocks[i, : n_valid[i]])
+        host_s = time.perf_counter() - t0
         shapes[algo] = {
             "blocks": len(blocks), "block_bytes": bs,
             "device_parse_to_lists_s": synced(lambda: helper(blocks, n_valid, dev))[1],

@@ -145,3 +145,44 @@ def test_lz78_roundtrip_on_the_card(dev, algo, monkeypatch):
     assert kernels.counts()["lz78_parse"] + kernels.counts()["lzw_parse"] == 1
     assert decompress(c, device="cuda") == data
     assert c == compress(algo, data, device="cpu")  # the host parse
+
+
+def test_moffat_phase12_kernel(dev):
+    """Kernel G against its plain version: sorted zipf weights, the edge
+    rows of sigma 0, 1, 2 and 256, and weights past 2^31."""
+    rng = np.random.default_rng(6)
+    hists = np.zeros((6, 256), np.int64)
+    hists[0] = np.bincount(rng.zipf(1.3, 1 << 20).clip(0, 255), minlength=256)
+    hists[2, 65] = 7
+    hists[3, [3, 200]] = [5, 9]
+    hists[4] = np.arange(1, 257)
+    hists[5] = hists[0] * (1 << 22)
+    weights, sigma, _ = ht._sort_hist(torch.from_numpy(hists).to(dev))
+    sigma[1] = 300  # clamped to 256 by both versions
+    kernels.reset_counts()
+    got = tk.moffat_phase12(weights, sigma)
+    torch.cuda.synchronize()
+    assert kernels.counts()["moffat_phase12"] == 1
+    _equal((got,), (tk.moffat_phase12_plain(weights, sigma),))
+
+
+@pytest.mark.parametrize("data", ["zipf", "32-bit codes"])
+def test_shared_roundtrip_on_the_card(dev, data, monkeypatch):
+    monkeypatch.delenv("TDC_DEVICE_HUFF", raising=False)
+    rng = np.random.default_rng(7)
+    if data == "zipf":
+        raw = bytes(rng.zipf(1.3, 300_000).clip(0, 255).astype(np.uint8))
+    else:  # Fibonacci counts: a caterpillar tree whose longest codes have 32 bits
+        fib = [1, 1]
+        while len(fib) < 33:
+            fib.append(fib[-1] + fib[-2])
+        raw = bytes(rng.permutation(np.repeat(np.arange(33, dtype=np.uint8), fib)))
+    algo = "blockwise(encode(huff),bs=1048576,shared=1)"
+    kernels.reset_counts()
+    c = compress(algo, raw, device="cuda")
+    assert decompress(c, device="cuda") == raw
+    launches = kernels.counts()
+    assert all(launches[k] for k in ("moffat_phase12", "pack_blocks", "pack_bytes_blocks", "decode_payloads"))
+    assert launches["huffman_tables"] == 0
+    assert c == compress(algo, raw, device="cpu")  # the plain versions
+    assert decompress(c, device="cpu") == raw  # the host decoder

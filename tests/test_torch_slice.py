@@ -3,11 +3,14 @@
 The port's runtime and driver (device stages on the CPU through the
 kernels' plain versions, TDC_DEVICE_HUFF=1) must write the container the
 JAX package writes, byte for byte, and each package must decode the
-other's. Tolerance: exact equality, since every stage is integer
-arithmetic. The jax-free cases run the port in a subprocess with jax
-blocked from import.
+other's; so must the port's host path for every other id it registers
+(each coder, trie and hash axis). Tolerance: exact equality, since every
+stage is integer arithmetic. The jax-free cases run the port in a
+subprocess with jax and the JAX package blocked from import, and a static
+check reads every import of the port.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -101,10 +104,7 @@ def test_host_coder_path_matches(monkeypatch):
     assert decompress(got, device="cpu") == data
 
 
-@pytest.mark.parametrize(
-    "algo",
-    ["blockwise(encode(huff),shared=1)", "blockwise(blockwise(encode(huff)))"],
-)
+@pytest.mark.parametrize("algo", ["blockwise(blockwise(encode(huff)))"])
 def test_unported_options_raise(algo, monkeypatch):
     monkeypatch.setenv("TDC_DEVICE_HUFF", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -133,8 +133,10 @@ _JAX_FREE = textwrap.dedent(
     """
     import os, sys
     sys.modules["jax"] = None  # any import of jax now fails
+    sys.modules["tudocomp_tpu"] = None  # and of the JAX package
     os.environ["TDC_DEVICE_HUFF"] = "1"
     from tudocomp_tpu_torch.driver import compress, decompress
+    from tudocomp_tpu_torch.registry import TorchRegistry
     data = bytes(range(256)) * 40 + b"jax-free roundtrip" * 100
     if sys.argv[1] == "cpu":
         c = compress("blockwise(encode(huff),bs=4096)", data, device="cpu")
@@ -143,6 +145,17 @@ _JAX_FREE = textwrap.dedent(
             os.environ["TDC_DEVICE_LZ78"] = parse
             c = compress("blockwise(lz78(coder=bit),bs=1024)", data, device="cpu")
             assert decompress(c, device="cpu") == data
+        # every id the port registers: each coder under encode, lz78 and
+        # lzw, each lz78trie, and blockwise with a shared table
+        reg = TorchRegistry("cpu")
+        coders = reg.names("coder")
+        ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in coders]
+        ids += [f"lz78(coder=bit,lz78trie={t})" for t in reg.names("lz78trie")]
+        ids += ["blockwise(encode(huff),bs=4096,shared=1)", "blockwise(lzw(coder=gamma),bs=4096)"]
+        for algo in ids:
+            c = compress(algo, data, device="cpu")
+            assert decompress(c, device="cpu") == data, algo
+        print(len(ids), "ids")
     else:
         try:
             compress("blockwise(encode(huff))", data, device="cuda")
@@ -150,7 +163,7 @@ _JAX_FREE = textwrap.dedent(
             print("raised:", e)
         else:
             sys.exit("device='cuda' did not raise")
-    loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax"]
+    loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "tudocomp_tpu")]
     assert not loaded, loaded
     print("ok")
     """
@@ -168,3 +181,85 @@ def test_port_runs_without_jax(device):
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+def _host_ids():
+    """Every id the port registers outside blockwise: each coder under
+    encode, lz78 and lzw, each lz78trie under lz78 and lzw, and the hash
+    axes of the hash tries."""
+    from tudocomp_tpu_torch.registry import TorchRegistry
+
+    reg = TorchRegistry("cpu")
+    ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in reg.names("coder")]
+    ids += [f"{c}(coder=bit,lz78trie={t})" for c in ("lz78", "lzw") for t in reg.names("lz78trie")]
+    ids += [
+        "lz78(coder=gamma,lz78trie=hash(hash_function=vigna,hash_prober=quadratic,hash_manager=direct))",
+        "lz78(coder=bit,lz78trie=hash(hash_function=noop,hash_prober=double,hash_manager=prime))",
+        "lz78(coder=delta,lz78trie=hash_plus(hash_function=knuth,hash_manager=prime))",
+        "lzw(coder=bit,lz78trie=hash(hash_function=knuth,hash_prober=gauss))",
+        "lz78(coder=bit,lz78trie=rolling(hash_roll=karprabin,hash_prober=gauss))",
+    ]
+    return ids
+
+
+_HOST_DATA = CASES["deep-skew"][:4000] + b"abracadabra, abracadabra " * 60 + CASES["zipf"][:3000]
+
+
+@pytest.mark.parametrize("algo", _host_ids())
+def test_host_ids_match_jax_package(algo):
+    """The port's copies of the host layers write the JAX package's bytes
+    for every registered id, and each package decodes the other's
+    container."""
+    want = jax_compress(algo, _HOST_DATA)
+    got = compress(algo, _HOST_DATA, device="cpu")
+    assert got == want
+    assert decompress(want, device="cpu") == _HOST_DATA
+    assert jax_decompress(got) == _HOST_DATA
+
+
+def _imports(path):
+    """Every module that `path` imports, relative imports resolved."""
+    tree = ast.parse(open(path).read(), path)
+    pkg = os.path.relpath(os.path.dirname(path), ROOT).replace(os.sep, ".").split(".")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[: len(pkg) - node.level + 1] if node.level else []
+            yield ".".join([*base, node.module] if node.module else base)
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """The port and chip_smoke.py import neither jax nor tudocomp_tpu, not
+    even its jax-free modules (function-level imports included)."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "tudocomp_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 30
+    bad = [
+        (os.path.relpath(p, ROOT), m)
+        for p in paths
+        for m in _imports(p)
+        if m.split(".")[0] in ("jax", "jaxlib", "tudocomp_tpu")
+    ]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize(
+    "algo",
+    ["encode(huff)", "lz78(coder=bit)", "lz78(coder=gamma)", "lzw(coder=bit)",
+     "blockwise(encode(huff),bs=1024,shared=1)"],
+)
+def test_host_path_without_the_cpp_helpers(algo, monkeypatch):
+    """Where g++ is missing the port's host layers take their Python paths
+    (native.get_lib() is None): the same bytes, the same roundtrip."""
+    from tudocomp_tpu_torch import native
+
+    data = CASES["deep-skew"][:3000] + b"abracadabra " * 100
+    want = compress(algo, data, device="cpu")
+    assert native.get_lib() is not None
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", True)
+    assert native.get_lib() is None
+    assert compress(algo, data, device="cpu") == want
+    assert decompress(want, device="cpu") == data

@@ -1,11 +1,12 @@
 """tudocomp_tpu_torch: the PyTorch and CUDA port of tudocomp_tpu.
 
 The port runs the block-parallel canonical Huffman path,
-`blockwise(encode(huff))`, on one NVIDIA Hopper GPU through hand-written
+`blockwise(encode(huff))` with per-block or shared tables, and the
+blockwise LZ78/LZW parse on one NVIDIA Hopper GPU through hand-written
 CUDA kernels (csrc/), and on the CPU through those kernels' plain PyTorch
-versions. It reuses the JAX package's jax-free host layers (io, meta, dsl,
-the registry, the Huffman coder, the literal encoder, TBK1 framing, stats)
-by import, and imports no jax itself.
+versions. It imports neither jax nor tudocomp_tpu: the host layers it
+needs (io, meta, dsl, the registry, the coders, the LZ78/LZW compressors,
+TBK1 framing, stats, the C++ host helpers) are its own copies.
 
     from tudocomp_tpu_torch.driver import compress, decompress
     c = compress("blockwise(encode(huff))", data, device="cuda")

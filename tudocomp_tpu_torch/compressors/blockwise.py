@@ -4,10 +4,12 @@
 
 The input is split into fixed-size blocks, each block is compressed on its
 own by the inner compressor, and the streams are framed in the TBK1
-container (tudocomp_tpu's parallel/blocks.py), so the bytes equal the JAX
-package's. The routing is tudocomp_tpu/compressors/blockwise.py's:
-encode(huff) goes to the device runtime where device.use_device says so
-(TDC_DEVICE_HUFF); an inner with a batch hook (`compress_block_batch`:
+container (parallel/blocks.py), so the bytes equal the JAX package's. The
+routing is tudocomp_tpu/compressors/blockwise.py's: encode(huff) goes to
+the device runtime where device.use_device says so (TDC_DEVICE_HUFF), and
+always with shared=1, whose one table of the whole input no per-block host
+coder builds (the JAX package's encode route reads no override either);
+an inner with a batch hook (`compress_block_batch`:
 lz78, lzw) codes all blocks at once where its gate says so; every other
 block goes through the port's driver with raw=True, which wraps it with
 the inner's input restrictions. Decoding mirrors it: encode(huff) on the
@@ -15,21 +17,19 @@ device, every other block through the driver, one after another (the JAX
 package's thread pool decodes 8 KiB blocks 3-8x slower, PERF.md
 section 5).
 
-Not ported yet: shared=1, which only encode(huff) reads, and a blockwise
-inner.
+Not ported yet: a blockwise inner.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tudocomp_tpu.base import Compressor
-from tudocomp_tpu.io.inout import Input, Output
-from tudocomp_tpu.meta import Meta
-from tudocomp_tpu.parallel.blocks import frame_streams, split_blocks, unframe_streams
-from tudocomp_tpu.stats.phase import StatPhase
-
+from ..base import Compressor
 from ..device import use_device
+from ..io.inout import Input, Output
+from ..meta import Meta
+from ..parallel.blocks import frame_streams, split_blocks, unframe_streams
+from ..stats.phase import StatPhase
 
 _HUFF = ("encode(coder=huff)", "encode(huff)")
 
@@ -57,16 +57,13 @@ class BlockwiseCompressor(Compressor):
         data = inp.as_array()
         device = self.env.registry.device
         if av.id_string() in _HUFF:
-            if self.env.option("shared").as_integer():
-                raise NotImplementedError(
-                    "shared Huffman tables are not ported yet (ROADMAP.md, Queue 1 item 2)"
-                )
-            if use_device("TDC_DEVICE_HUFF", device):
+            shared = bool(self.env.option("shared").as_integer())
+            if shared or use_device("TDC_DEVICE_HUFF", device):
                 from ..parallel.runtime import blockwise_huffman_compress
 
                 with StatPhase("device blockwise encode") as ph:
                     ph.log("bs", bs)
-                    out.write(blockwise_huffman_compress(data, bs, device))
+                    out.write(blockwise_huffman_compress(data, bs, device, shared_table=shared))
                 return
         blocks, n_valid = split_blocks(data, bs)
         batch = getattr(comp, "compress_block_batch", None)

@@ -1,5 +1,6 @@
 // Kernel C (huffman_tables): per-block canonical Huffman tables from
-// [B, 256] byte histograms.
+// [B, 256] byte histograms; and kernel G (moffat_phase12): Moffat phases 1
+// and 2 on sorted int64 weights, for the shared table.
 //
 // Replaces tudocomp_tpu/ops/pallas_kernels.py:_huffman_tables_kernel and
 // reproduces tudocomp_tpu/ops/huffman_jax.py _sort_hist, _phase12_xla,
@@ -18,6 +19,21 @@
 // microseconds a block), not bandwidth: a block reads 1 KiB and writes
 // ~4 KiB. The TPU kernel's lane rotations and one-hot selects stood in for
 // gathers and scatters that shared memory gives directly.
+//
+// Kernel G replaces tudocomp_tpu/ops/pallas_kernels.py:_moffat_lockstep_kernel
+// (entry point moffat_phase12): the same phases 1 and 2 on [B, 256] sorted
+// weights, here int64, since the shared table sums the histograms of all
+// blocks and its weights pass 2^31 once the input passes 2 GiB. Slots
+// 0..sigma-2 come back holding internal-node depths; rows with sigma <= 1
+// come back unchanged, as the TPU kernel leaves them. Design: one CTA per
+// row, the row in shared memory (257 x 8 bytes), one thread walking the
+// phases. Bound on the H100: the latency of the dependent chain of
+// ~2 * 254 shared-memory steps (a few microseconds a row), not bytes
+// (a row reads and writes 2 KiB); the shared path runs it on one row. The
+// TPU kernel advanced all rows in lockstep through one-hot lane selects;
+// here each row is its own CTA. Kernels C and G walk the phases through
+// one function, moffat_phase12_row, instantiated per weight type, so
+// kernel C's arithmetic is what it was.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,6 +42,42 @@ namespace {
 
 constexpr int MAX_LEN = 32;
 constexpr int32_t BIG = 0x3FFFFFFF;
+
+// Moffat-Katajainen phases 1 and 2 (ties prefer the leaf) on A[0..m-1],
+// sorted ascending, in place; A[m..256] must be readable (A[256] reads as
+// an out-of-range one-hot read: 0). On return A[0..m-2] hold the internal
+// nodes' depths. One thread: each step depends on the one before.
+template <typename W>
+__device__ void moffat_phase12_row(W* A, int m) {
+  if (m < 2) return;
+  A[0] = A[0] + A[1];
+  int root = 0, leaf = 2;
+  for (int t = 1; t < m - 1; ++t) {
+    W a_root = A[root], a_leaf = A[leaf];
+    W v1;
+    if (leaf >= m || a_root < a_leaf) {
+      v1 = a_root;
+      A[root++] = t;
+    } else {
+      v1 = a_leaf;
+      ++leaf;
+    }
+    A[t] = v1;
+    a_root = A[root];
+    a_leaf = A[leaf];
+    W v2;
+    if (leaf >= m || (root < t && a_root < a_leaf)) {
+      v2 = a_root;
+      A[root++] = t;
+    } else {
+      v2 = a_leaf;
+      ++leaf;
+    }
+    A[t] = v1 + v2;
+  }
+  A[m - 2] = 0;
+  for (int nxt = m - 3; nxt >= 0; --nxt) A[nxt] = A[(int)A[nxt]] + 1;
+}
 
 __global__ void __launch_bounds__(256)
 huffman_tables_kernel(const int32_t* hists, int32_t* lengths, int32_t* cw, int32_t* numl,
@@ -62,35 +114,7 @@ huffman_tables_kernel(const int32_t* hists, int32_t* lengths, int32_t* cw, int32
   __syncthreads();
 
   // Moffat phases 1 and 2 (one thread: a dependent chain)
-  if (s == 0 && m >= 2) {
-    A[0] = A[0] + A[1];
-    int root = 0, leaf = 2;
-    for (int t = 1; t < m - 1; ++t) {
-      int a_root = A[root], a_leaf = A[leaf];
-      int v1;
-      if (leaf >= m || a_root < a_leaf) {
-        v1 = a_root;
-        A[root++] = t;
-      } else {
-        v1 = a_leaf;
-        ++leaf;
-      }
-      A[t] = v1;
-      a_root = A[root];
-      a_leaf = A[leaf];
-      int v2;
-      if (leaf >= m || (root < t && a_root < a_leaf)) {
-        v2 = a_root;
-        A[root++] = t;
-      } else {
-        v2 = a_leaf;
-        ++leaf;
-      }
-      A[t] = v1 + v2;
-    }
-    A[m - 2] = 0;
-    for (int nxt = m - 3; nxt >= 0; --nxt) A[nxt] = A[A[nxt]] + 1;
-  }
+  if (s == 0) moffat_phase12_row<int32_t>(A, m);
   __syncthreads();
 
   // phase 3: internal nodes per depth -> leaves per depth -> depth per sorted position
@@ -161,7 +185,30 @@ huffman_tables_kernel(const int32_t* hists, int32_t* lengths, int32_t* cw, int32
   }
 }
 
+__global__ void __launch_bounds__(256)
+moffat_phase12_kernel(const int64_t* weights, const int32_t* sigma, int64_t* out) {
+  __shared__ int64_t A[257];
+  const int64_t row = (int64_t)blockIdx.x * 256;
+  const int s = threadIdx.x;
+  A[s] = weights[row + s];
+  if (s == 0) A[256] = 0;
+  __syncthreads();
+  if (s == 0) moffat_phase12_row<int64_t>(A, min(max(sigma[blockIdx.x], 0), 256));
+  __syncthreads();
+  out[row + s] = A[s];
+}
+
 }  // namespace
+
+// weights [B, 256] i64 (ascending over each row's first sigma slots),
+// sigma [B] i32 (clamped to [0, 256]) -> out [B, 256] i64.
+extern "C" int tdc_moffat_phase12(const void* weights, const void* sigma, int B, void* out,
+                                  void* stream) {
+  moffat_phase12_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(weights), static_cast<const int32_t*>(sigma),
+      static_cast<int64_t*>(out));
+  return (int)cudaGetLastError();
+}
 
 // hists [B, 256] i32 -> lengths, cw (u32 bit patterns), ordered_sym [B, 256],
 // numl [B, 32], sigma [B], longest [B], all i32.

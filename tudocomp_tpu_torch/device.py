@@ -10,7 +10,8 @@ device stages of the Huffman path (on whichever device was given), =0
 forces the host coder; TDC_DEVICE_LZ78 does the same for the blockwise
 LZ78/LZW parse. Unset, the device stages run on a CUDA device and the host
 paths on the CPU. The blockwise parse has a size gate on top
-(use_parse_device).
+(use_parse_device). blockwise(encode(huff),shared=1) reads neither: no
+host coder builds its one table, so it always runs the device stages.
 """
 
 from __future__ import annotations

@@ -12,8 +12,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from tudocomp_tpu.io.inout import Input, Output
-
+from .io.inout import Input, Output
 from .registry import TorchRegistry
 
 __all__ = ["compress", "decompress"]

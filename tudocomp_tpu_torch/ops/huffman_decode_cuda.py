@@ -18,10 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tudocomp_tpu.coders.huffman import read_table
-from tudocomp_tpu.io.bitio import BitReader
-
 from .. import kernels
+from ..coders.huffman import read_table
+from ..io.bitio import BitReader
 from .bitpack_cuda import on_cuda
 
 __all__ = [

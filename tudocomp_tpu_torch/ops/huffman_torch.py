@@ -13,10 +13,16 @@ Stages, all batched over blocks:
   4. header pack                                 (kernel A, bitpack_cuda)
   5. fused codeword lookup + pack after header   (kernel B, bitpack_cuda)
 
+With a shared table (shared_tables) stage 2 runs once, on the histogram
+summed over all blocks: _sort_hist (plain), Moffat phases 1-2 (kernel G,
+table_kernels.moffat_phase12), _phase3 and canonical_codes_batch (plain).
+
 code_lengths_batch and canonical_codes_batch are the plain table chain,
 kernel C's reference. Blocks are capped at MAX_BLOCK = 2 MiB: a depth-d code
 needs a block of at least Fibonacci(d + 1) symbols, so the cap keeps code
 lengths at 31 bits or fewer and every token within the 32-bit pack limit.
+A shared table has no such bound: code_lengths_batch raises where a code
+would exceed 32 bits.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from .bitpack_cuda import pack_blocks, pack_bytes_blocks
-from .table_kernels import HuffmanTables, huffman_tables
+from .table_kernels import HuffmanTables, huffman_tables, moffat_phase12
 
 __all__ = [
     "MAX_BLOCK",
@@ -37,6 +43,7 @@ __all__ = [
     "encode_blocks_from_lengths",
     "encode_blocks_with_hists",
     "huffman_table_tokens",
+    "shared_tables",
     "tables_from_numpy",
 ]
 
@@ -44,6 +51,7 @@ MAX_BLOCK = 1 << 21  # keeps max code length <= 31 (Fibonacci bound)
 MAX_LEN = 32  # code length slots 1..MAX_LEN
 N_TABLE_TOKENS = 1 + 4 + 4 * MAX_LEN + 4 + 256
 _BIG = 0x3FFFFFFF
+_ABSENT = 1 << 62  # above every (count << 9) | symbol key of counts below 2^53
 
 
 def block_histograms(blocks, n_valid):
@@ -63,65 +71,47 @@ def _rank(key):
     return (key[:, None, :] < key[:, :, None]).sum(dim=2)
 
 
-def code_lengths_batch(hists):
-    """[B, 256] histograms -> [B, 256] int32 code lengths (0 = absent).
+def _sort_hist(hists):
+    """[B, 256] histograms -> (sorted weights [B, 256] int64, sigma [B]
+    int32, rank [B, 256] int64): the counterpart of huffman_jax._sort_hist.
 
-    Symbols rank by (count << 9) | symbol; Moffat/Katajainen phases 1-2
-    (ties prefer the leaf) run in lockstep over the blocks; phase 3 reads
-    leaf depths off the internal-depth histogram. Blocks with sigma <= 1
-    get all zeros."""
-    B = hists.shape[0]
-    dev = hists.device
+    Symbols rank by the key (count << 9) | symbol in int64, absent symbols
+    after every present one: the order the JAX package means, without the
+    wrap of its int32 key once a count reaches 2^22 (a shared table's
+    summed histogram does). Slots past sigma hold 0."""
     h = hists.to(torch.int64)
     present = h > 0
-    m = present.sum(dim=1)
-    sym = torch.arange(256, device=dev)
-    key = torch.where(present, ((h << 9) | sym).to(torch.int32), _BIG)  # i32 wrap as in the reference
-    rank = _rank(key)
-    # sorted weights; column 256 stays 0, the value of an out-of-range read
-    A = torch.zeros((B, 257), dtype=torch.int64, device=dev)
-    A.scatter_(1, torch.where(present, rank, 256), torch.where(present, h, 0))
-    A[:, 256] = 0
+    sym = torch.arange(256, device=h.device)
+    key = torch.where(present, (h << 9) | sym, _ABSENT | sym)
+    rank = _rank(key)  # a permutation: the keys are unique
+    weights = torch.zeros_like(h).scatter_(1, rank, torch.where(present, h, 0))
+    return weights, present.sum(dim=1).to(torch.int32), rank
 
-    bi = torch.arange(B, device=dev)
-    ok = m >= 2
-    A[:, 0] = torch.where(ok, A[:, 0] + A[:, 1], A[:, 0])
-    root = torch.zeros(B, dtype=torch.int64, device=dev)
-    leaf = torch.full((B,), 2, dtype=torch.int64, device=dev)
-    m_max = int(m.max()) if B else 0
 
-    def pick(root, leaf, t, first):
-        a_root = A[bi, root]
-        a_leaf = A[bi, leaf.clamp(max=256)]
-        use = (leaf >= m) | (a_root < a_leaf) if first else (
-            (leaf >= m) | ((root < t) & (a_root < a_leaf))
+def _check_depth(A, sigma) -> None:
+    """Raise where a code would be longer than MAX_LEN bits: kernels A, B
+    and D take codes of at most 32 bits. A block of at most MAX_BLOCK bytes
+    never needs one; a skewed shared histogram can."""
+    internal = torch.arange(256, device=A.device)[None, :] < (sigma.to(torch.int64) - 1)[:, None]
+    if not bool(internal.any()):
+        return
+    longest = int(torch.where(internal, A, 0).max()) + 1
+    if longest > MAX_LEN:
+        raise ValueError(
+            f"the Huffman code needs {longest}-bit codes, more than the {MAX_LEN} bits the pack and "
+            "decode kernels take: the histogram is too skewed for one table"
         )
-        return torch.where(use, a_root, a_leaf), use
 
-    for t in range(1, max(m_max - 1, 1)):
-        active = t < m - 1
-        v1, use1 = pick(root, leaf, t, True)
-        A[bi, root] = torch.where(active & use1, t, A[bi, root])
-        root1, leaf1 = root + use1, leaf + ~use1
-        A[:, t] = torch.where(active, v1, A[:, t])
-        v2, use2 = pick(root1, leaf1, t, False)
-        A[bi, root1] = torch.where(active & use2, t, A[bi, root1])
-        root = torch.where(active, root1 + use2, root)
-        leaf = torch.where(active, leaf1 + ~use2, leaf)
-        A[:, t] = torch.where(active, v1 + v2, A[:, t])
 
-    last = (m - 2).clamp(min=0)
-    A[bi, last] = torch.where(ok, 0, A[bi, last])
-    for j in range(max(m_max - 2, 0)):
-        nxt = m - 3 - j
-        nc = nxt.clamp(min=0)
-        parent = A[bi, A[bi, nc].clamp(0, 256)]
-        A[bi, nc] = torch.where(nxt >= 0, parent + 1, A[bi, nc])
-
-    # phase 3: internal depths -> per-symbol code lengths
+def _phase3(A, rank, sigma):
+    """Internal depths -> per-symbol code lengths [B, 256] int32: the
+    counterpart of huffman_jax._phase3. Leaf depths are read off the
+    internal-depth histogram; blocks with sigma <= 1 get all zeros."""
+    dev = A.device
+    m = sigma.to(torch.int64)
     pos = torch.arange(256, device=dev)
     internal = pos[None, :] < (m - 1)[:, None]
-    idepth = torch.where(internal, A[:, :256].clamp(max=MAX_LEN + 1), MAX_LEN + 1)
+    idepth = torch.where(internal, A.clamp(max=MAX_LEN + 1), MAX_LEN + 1)
     drange = torch.arange(MAX_LEN + 1, device=dev)
     nd = (idepth[:, None, :] == drange[None, :, None]).sum(dim=2)  # [B, 33]
     leaves = 2 * torch.cat([torch.zeros_like(nd[:, :1]), nd[:, :-1]], dim=1) - nd
@@ -131,7 +121,21 @@ def code_lengths_batch(hists):
     depth = (cum[:, None, :] <= rankf[:, :, None]).sum(dim=2)
     depth = torch.where(pos[None, :] < m[:, None], depth, 0)
     lengths = depth.gather(1, rank)
-    return torch.where(ok[:, None], lengths, 0).to(torch.int32)
+    return torch.where((m >= 2)[:, None], lengths, 0).to(torch.int32)
+
+
+def code_lengths_batch(hists, phase12=moffat_phase12):
+    """[B, 256] histograms (any integer type, counts below 2^53) -> [B, 256]
+    int32 code lengths (0 = absent).
+
+    _sort_hist, Moffat/Katajainen phases 1-2 (`phase12`: kernel G, which
+    takes its plain version for CPU tensors; ties prefer the leaf), then
+    _phase3. Blocks with sigma <= 1 get all zeros. Raises ValueError where
+    a code would exceed MAX_LEN bits."""
+    weights, sigma, rank = _sort_hist(hists)
+    A = phase12(weights, sigma)
+    _check_depth(A, sigma)
+    return _phase3(A, rank, sigma)
 
 
 def canonical_codes_batch(lengths):
@@ -230,7 +234,9 @@ def huffman_table_tokens(numl, ordered_sym, sigma, longest):
 
 
 def _encode_with_tables(blocks, n_valid, t: HuffmanTables, n_words: int):
-    """Header tokens -> kernel A; per-byte lookup + pack -> kernel B."""
+    """Header tokens -> kernel A; per-byte lookup + pack -> kernel B. Tables
+    of batch 1 (a shared table) code every block: the header is packed once
+    and broadcast to the batch."""
     normal = (t.sigma >= 2)[:, None]
     iota = torch.arange(256, dtype=torch.int32, device=blocks.device)[None, :]
     # normal blocks use the canonical code, degenerate ones raw 8-bit literals
@@ -238,6 +244,8 @@ def _encode_with_tables(blocks, n_valid, t: HuffmanTables, n_words: int):
     tbl_nb = torch.where(normal, t.lengths, 8)
     tv, tb = huffman_table_tokens(t.numl, t.ordered_sym, t.sigma, t.longest)
     hdr_words, hdr_bits = pack_blocks(tv, tb, N_TABLE_TOKENS)
+    B = blocks.shape[0]
+    tbl_v, tbl_nb, hdr_words, hdr_bits = (x.expand(B, *x.shape[1:]) for x in (tbl_v, tbl_nb, hdr_words, hdr_bits))
     return pack_bytes_blocks(blocks, n_valid, tbl_v, tbl_nb, hdr_words, hdr_bits, n_words)
 
 
@@ -260,14 +268,26 @@ def encode_blocks_with_hists(blocks, n_valid, hists, n_words: int):
     return _encode_with_tables(blocks, n_valid, huffman_tables(hists), n_words)
 
 
-def encode_blocks(blocks, n_valid, n_words: int, shared_table: bool = False):
+def shared_tables(hist) -> HuffmanTables:
+    """One table from a [256] histogram summed over blocks: the lengths by
+    code_lengths_batch on a batch of one (kernel G on a CUDA tensor), then
+    canonical_codes_batch once. A HuffmanTables of batch 1; raises
+    ValueError where the code would need more than 32 bits."""
+    lengths = code_lengths_batch(hist.reshape(1, 256))
+    return HuffmanTables(lengths, *canonical_codes_batch(lengths))
+
+
+def encode_blocks(blocks, n_valid, n_words: int, shared_table: HuffmanTables | None = None):
     """Encode [B, bs] u8 blocks -> ([B, n_words] int32 words, [B] int32 total bits).
 
     n_valid [B] gives per-block byte counts; bytes past them are skipped,
     histogram included. Arenas hold u32 bit patterns; bits past n_words are
-    dropped."""
-    if shared_table:
-        raise NotImplementedError(
-            "shared Huffman tables are not ported yet (ROADMAP.md, Queue 1 item 2)"
-        )
+    dropped. With shared_table (batch 1, from shared_tables) that one table
+    codes every block and stands in each block's header, so every block
+    decodes on its own (huffman_jax.encode_blocks's shared mode). The caller
+    builds it from the histogram of the whole input, which the runtime
+    encodes in several calls."""
+    if shared_table is not None:
+        _check_block_size(blocks.shape[1])
+        return _encode_with_tables(blocks, n_valid, shared_table, n_words)
     return encode_blocks_with_hists(blocks, n_valid, block_histograms(blocks, n_valid), n_words)

@@ -2,22 +2,25 @@
 
 The port of tudocomp_tpu/parallel/runtime.py for a single GPU (or the CPU,
 through the kernels' plain versions): the input is split into TBK1 blocks
-(parallel/blocks.py of the JAX package), the blocks are encoded in batches
-on `device`, and the per-block streams are framed in block order, so the
-container is byte-identical to the JAX package's. There is no mesh.
+(parallel/blocks.py), the blocks are encoded in batches on `device`, and
+the per-block streams are framed in block order, so the container is
+byte-identical to the JAX package's. There is no mesh.
+
+With a shared table, the one table covers the whole input, as the JAX
+package's psum'd histogram does: pass 1 copies every batch to the device
+and sums its histograms in int64, pass 2 builds the table once (kernel G)
+and encodes the batches, which stayed on the device between the passes.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-
-from tudocomp_tpu.parallel.blocks import frame_streams, split_blocks, unframe_streams
 
 from ..device import resolve
 from ..ops.bitpack import finalize_stream
 from ..ops.huffman_decode_cuda import decode_payloads_batched
-from ..ops.huffman_torch import encode_blocks
+from ..ops.huffman_torch import block_histograms, encode_blocks, shared_tables
+from .blocks import frame_streams, split_blocks, unframe_streams
 
 __all__ = ["blockwise_huffman_compress", "blockwise_huffman_decompress"]
 
@@ -36,20 +39,23 @@ def blockwise_huffman_compress(
     data, block_size: int = 1 << 18, device="cuda", shared_table: bool = False
 ) -> bytes:
     """End-to-end block-parallel Huffman encode -> framed container bytes."""
-    if shared_table:
-        raise NotImplementedError(
-            "shared Huffman tables are not ported yet (ROADMAP.md, Queue 1 item 2)"
-        )
     _single_process()
     dev = resolve(device)
     blocks, n_valid = split_blocks(data, block_size)
     n_words = (9 * block_size + 4096 + 31) // 32
     per = max(1, _BATCH_BYTES // block_size)
+    batches = (
+        (torch.from_numpy(blocks[lo : lo + per]).to(dev), torch.from_numpy(n_valid[lo : lo + per]).to(dev))
+        for lo in range(0, len(blocks), per)
+    )
+    tables = None
+    if shared_table:
+        batches = list(batches)  # pass 1; the batches stay on the device for pass 2
+        total = sum(block_histograms(b, nv).sum(dim=0, dtype=torch.int64) for b, nv in batches)
+        tables = shared_tables(total)
     payloads = []
-    for lo in range(0, len(blocks), per):
-        b = torch.from_numpy(blocks[lo : lo + per]).to(dev)
-        nv = torch.from_numpy(n_valid[lo : lo + per]).to(dev)
-        words, bits = encode_blocks(b, nv, n_words)
+    for b, nv in batches:
+        words, bits = encode_blocks(b, nv, n_words, shared_table=tables)
         bits = bits.cpu().numpy()
         used = min(n_words, (int(bits.max()) + 31) // 32)
         words = words[:, :used].cpu().numpy()
