@@ -6,16 +6,17 @@
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
 device="cpu") and decompress(container, device="cpu") with
-TDC_DEVICE_HUFF=0 and TDC_DEVICE_LZ78=0, which run the port's copies of the
-host coders and parses (tier-1 holds those byte-equal to the JAX package on
-the CPU). Phases, one JSON line each:
+TDC_DEVICE_HUFF=0, TDC_DEVICE_LZ78=0, TDC_DEVICE_SA=0 and TDC_DEVICE_LZSS=0,
+which run the port's copies of the host coders, parses and suffix stack
+(the CPU tests hold those byte-equal to the JAX package). Phases, one JSON
+line each:
   1. build          compile the CUDA kernels from tudocomp_tpu_torch/csrc,
                     one nvcc per source, in parallel, and the C++ host
                     helpers (g++) beside them;
   2. kernels        kernels A-D against their plain PyTorch versions on the
                     card, at the shapes of the Huffman path, held to exact
                     equality (every stage is integer arithmetic);
-  3. roundtrip      a seeded 256 MiB input through
+  3. roundtrip      a seeded 64 MiB input through
                     driver.compress / decompress("blockwise(encode(huff))",
                     device="cuda"); the container must equal, byte for byte,
                     the one the host path writes, and both decoders must
@@ -23,9 +24,9 @@ the CPU). Phases, one JSON line each:
   4. timing         CUDA-event times of kernels A-D and their plain versions,
                     and the end-to-end encode / decode rates of the roundtrip;
   5. shared         kernel G (Moffat phases 1-2, int64) against its plain
-                    version, exactly, on the summed histogram of the 256 MiB
+                    version, exactly, on the summed histogram of the 64 MiB
                     input, on phase 2's 69 histograms and on a row with
-                    weights past 2^31; the 256 MiB input through
+                    weights past 2^31; the 64 MiB input through
                     blockwise(encode(huff),shared=1) on the card, decoded
                     on the card and by the host decoder, block 0's table
                     holding Kraft's equality, G, A, B and D launched; the
@@ -35,8 +36,9 @@ the CPU). Phases, one JSON line each:
   6. lz78 kernels   kernels E (LZ78 parse) and F (LZW parse) against their
                     plain versions and the host parses, exactly, at the
                     shapes phase 7 launches them with (the whole input as
-                    [200, 262144] and [6400, 8192]), at [128, 8192] and at
-                    an odd batch of 131 blocks;
+                    [200, 262144] and [6400, 8192]; the plain version of the
+                    first runs on its first 32 blocks, the host parse on all
+                    200), at [128, 8192] and at an odd batch of 131 blocks;
   7. lz78 roundtrip 50 MiB of bench.py's English stand-in through
                     blockwise(lz78(coder=bit)) (bs 256 KiB),
                     blockwise(lz78(coder=bit),bs=8192) and
@@ -47,7 +49,31 @@ the CPU). Phases, one JSON line each:
                     parse of the same blocks, the stages of each lz78/lzw
                     encode and decode, the end-to-end rates, and the encode
                     at the parse gate's largest block and at four times it,
-                    with the device parse and with the host parse.
+                    with the device parse and with the host parse;
+  9. probes         every kernel of csrc/probes.cu against its plain version
+                    on the card at the probe scripts' own shapes, exactly;
+                    then `python -m tudocomp_tpu_torch.probes` as a user runs
+                    it, every probe kernel launched; their times, bounds and,
+                    for the gather and the two rolls, the time of the one
+                    PyTorch call for the same function (torch.gather,
+                    torch.roll);
+ 10. suffix stack   16 MiB of the English stand-in and 16 MiB of a seeded
+                    4-letter DNA-like text: the suffix array and its inverse
+                    built on the card equal the C++ SA-IS and its inverse;
+                    the LCP array of kernel H equals the host's and its plain
+                    version's; the device factorization equals the C++
+                    factorizer's; each device stage timed, copies included,
+                    against its host counterpart, and again at smaller sizes
+                    (the numbers that set device.SA_MIN_N and LZSS_MIN_N) and
+                    on two highly repetitive texts;
+ 11. lzss roundtrip lzss_lcp(coder=huff) on each 16 MiB text, and
+                    blockwise(lzss_lcp(coder=huff),bs=262144) with and without
+                    shared=1 on the English one, through driver.compress /
+                    decompress(device="cuda"): each container equals the host
+                    path's, both decoders return the input, kernel H launched
+                    (TextDS takes its LCP from it where the card built the
+                    SA); the stages of the 16 MiB encode on the card and on
+                    the host.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its bound and its plain
 version's time), and the final line {"ok": true, "device": {...}}. Any
@@ -75,7 +101,7 @@ MIB = 1 << 20
 BS = 1 << 18  # the CLI's default block size
 BENCH_BLOCKS = 64  # bench.py's encode batch: 64 blocks of 256 KiB
 DEC_BS = 1 << 14  # bench.py's decode streams: 16 KiB
-ROUNDTRIP_BYTES = 256 * MIB
+ROUNDTRIP_BYTES = 64 * MIB
 TEXT_BYTES = 16 * MIB
 ALGO = "blockwise(encode(huff))"
 SHARED_ALGO = "blockwise(encode(huff),shared=1)"
@@ -86,6 +112,9 @@ LZ78_ALGOS = {  # id -> (block size, the kernel of its parse)
     "blockwise(lz78(coder=bit),bs=8192)": (8192, "lz78_parse"),
     "blockwise(lzw(coder=bit),bs=8192)": (8192, "lzw_parse"),
 }
+LZSS_BYTES = 16 * MIB  # BASELINE config 3's and BENCH_r05's lzss shapes
+LZSS_ALGO = "lzss_lcp(coder=huff)"
+PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
 HUFF_KERNELS = ("pack_blocks", "pack_bytes_blocks", "huffman_tables", "decode_payloads")
 SHARED_KERNELS = ("moffat_phase12", "pack_blocks", "pack_bytes_blocks", "decode_payloads")
 # the least time the card could take: bytes over the HBM3 rate and
@@ -126,6 +155,28 @@ KERNEL_INFO = {
         "tudocomp_tpu_torch/csrc/lz78.cu",
         "tudocomp_tpu/ops/lz78_pallas.py:126",
     ),
+    "plcp_segments": (
+        "tudocomp_tpu_torch/csrc/plcp.cu",
+        "tudocomp_tpu/ops/plcp_jax.py:29 (plain JAX there, no Pallas kernel: a kernel the port added)",
+    ),
+    **{
+        name: ("tudocomp_tpu_torch/csrc/probes.cu", replaces)
+        for name, replaces in {
+            "probe3_gather": "etc/probe3.py:120",
+            "probe6_roll_lane": "etc/probe6.py:39",
+            "probe6_roll_sublane": "etc/probe6.py:47",
+            "probe6_extract": "etc/probe6.py:56",
+            "probe6_bid": "etc/probe6.py:65",
+            "probe6_dot3": "etc/probe6.py:74",
+            "probe6_rmw": "etc/probe6.py:92",
+            "probe6_shift": "etc/probe6.py:111",
+            "probe7_pack": "etc/probe7.py:36",
+            "probe8_a": "etc/probe8.py:63",
+            "probe8_b": "etc/probe8.py:78",
+            "probe8_c": "etc/probe8.py:103",
+            "probe8_d": "etc/probe8.py:126",
+        }.items()
+    },
 }
 
 
@@ -187,15 +238,25 @@ def english_bytes(n: int):
     return np.frombuffer(b"".join(parts)[:n], np.uint8)
 
 
+GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS")
+
+
+def dna_bytes(n: int):
+    """A seeded 4-letter DNA-like text (uniform A, C, G, T)."""
+    import numpy as np
+
+    return np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(7).integers(0, 4, n)]
+
+
 @contextlib.contextmanager
 def host_path():
     """The port's host coders and parses: no device stage runs (an id with
     shared=1 takes the kernels' plain versions on the CPU)."""
-    os.environ.update(TDC_DEVICE_HUFF="0", TDC_DEVICE_LZ78="0")
+    os.environ.update({var: "0" for var in GATES})
     try:
         yield
     finally:
-        for var in ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78"):
+        for var in GATES:
             del os.environ[var]
 
 
@@ -248,6 +309,14 @@ def kernel_ops(name: str, args) -> int:
         return 10 * int(args[1].to(torch.int64).sum())
     if name == "moffat_phase12":  # per step of the chain: two reads, compares, writes
         return 16 * int((args[1].to(torch.int64) - 2).clamp(min=0).sum())
+    if name == "plcp_segments":  # per position: a phi read, ~2 byte compares, a store
+        return 8 * args[0].numel()
+    if name == "probe3_gather":  # per index: a bounds check and a load
+        return 3 * args[1].numel()
+    if name == "probe7_pack":  # per token, as kernel A, plus the segmented scan
+        return 24 * args[1].numel()
+    if name.startswith("probe"):  # per element of the tiles: a handful of operations
+        return 8 * max(a.numel() for a in args if isinstance(a, torch.Tensor))
     raise KeyError(name)
 
 
@@ -268,6 +337,10 @@ def kernel_bytes(name: str, args, out) -> int:
         _, n_valid, tbl_v, tbl_nb, _, hdr_bits, _ = args
         live = int(n_valid.to(torch.int64).sum())
         return live + nbytes((n_valid, tbl_v, tbl_nb, hdr_bits)) + filled(hdr_bits) + filled(out[1]) + nbytes(out[1])
+    if name == "probe3_gather":  # idx read, out written, the words of S that idx names read once
+        S, idx = args
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * S.shape[1]
+        return nbytes(idx) + nbytes(out) + 4 * int(torch.unique(idx.to(torch.int64) + rows).numel())
     return nbytes(args) + nbytes(out)
 
 
@@ -343,7 +416,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    for var in ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_BLOCKWISE_PROCS"):
+    for var in (*GATES, "TDC_BLOCKWISE_PROCS"):
         os.environ.pop(var, None)
 
     import numpy as np
@@ -516,11 +589,18 @@ def main() -> int:
     launches.update(lz78_roundtrip_phase(text.tobytes(), gpu))
     lz78_timing_phase(text, dev, gpu)
     timing.update(timing_e)
+    torch.cuda.empty_cache()
+
+    # 9-11. the probe kernels and the lzss_lcp suffix stack ---------------------
+    for part in (probes_phase(dev, gpu), suffix_phase(text[:LZSS_BYTES], dev, gpu)):
+        for table, new in zip((errs, timing, launches), part):
+            table.update(new)
+    launches.update(lzss_roundtrip_phase(text[:LZSS_BYTES], dev, gpu))
 
     print(gpu)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name], **timing[name], "library_ms": None}
+         "launches": launches[name], "max_abs_err": errs[name], "library_ms": None, **timing[name]}
         for name, (src, rep) in KERNEL_INFO.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -731,9 +811,10 @@ def lz78_kernel_phase(text, dev, gpu):
         kernel, plain, host = _parse_fns(kname)
         b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
         got = kernel(b, nv)
-        torch.cuda.empty_cache()  # the plain child table of a main shape takes ~52 GiB
-        want, plain_ms = cuda_once(lambda: plain(b, nv))
-        err = max_abs_err(got, want)
+        torch.cuda.empty_cache()  # the plain child table of 200 blocks of 256 KiB takes ~52 GiB
+        k = PLAIN_BLOCKS if blocks.shape[1] == BS else len(blocks)
+        want, plain_ms = cuda_once(lambda: plain(b[:k], nv[:k]))
+        err = max_abs_err(tuple(g[:k] for g in got), want)
         per_block = _per_block(kname, got)
         host_ok = all(_same(g, host(blocks[i, : n_valid[i]])) for i, g in enumerate(per_block))
         if err or not host_ok:
@@ -744,7 +825,7 @@ def lz78_kernel_phase(text, dev, gpu):
             mid = sum(len(p) > 1 and bool(((p[:-1] == p[-1]) & (c[:-1] == c[-1])).any()) for p, c in per_block)
             if mid == 0:
                 raise AssertionError(f"{name}: no block ends inside a phrase")
-        report[name] = {"ms": ms, "plain_ms": plain_ms, "factors": int(got[-1].sum()),
+        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_blocks": k, "factors": int(got[-1].sum()),
                         "blocks_ending_mid_phrase": mid}
         errs[kname] = max(errs[kname], err)
         if name == line_case[kname]:
@@ -906,6 +987,331 @@ def lz78_timing_phase(text, dev, gpu) -> None:
         os.environ.pop("TDC_DEVICE_LZ78", None)
     emit({"phase": "lz78 timing", "parse": shapes, "stages": stages, "end_to_end": e2e,
           "gate": gate, "card": gpu})
+
+
+def probes_phase(dev, gpu):
+    """Phase 9: every kernel of csrc/probes.cu against its plain version at
+    the probe scripts' own shapes, the entry point driven as a user drives
+    it, and the times. Returns (errs, timing, launches) by kernel name."""
+    import torch
+
+    from tudocomp_tpu_torch import kernels, probes
+
+    vals3, nb3 = probes.probe3_inputs(dev)
+    n_words = (9 * probes.P3_BS + 4096 + 31) // 32
+    S = probes.hillis_xor(vals3)
+    idx = probes.hist2(nb3, n_words).clamp(0, S.shape[1] - 1)
+    idx64 = idx.to(torch.int64)
+    del vals3, nb3
+    x8 = torch.arange(probes.TILE, dtype=torch.int32, device=dev).reshape(probes.ROWS, probes.LANES)
+    i300 = torch.tensor([[300]], dtype=torch.int32, device=dev)
+    vals7, nbits7 = probes.probe7_inputs(dev)
+    v8 = torch.ones((probes.P8_B, probes.P8_T, probes.ROWS, probes.LANES), dtype=torch.int32, device=dev)
+
+    def p7(fn, level):
+        return lambda v, nb: fn(v, nb, probes.P7_NWP, level, want_mid=True)
+
+    # name -> [(args, kernel, plain)], the first case being the one that is timed
+    cases = {
+        "probe3_gather": [((S, idx), probes.gather, probes.gather_plain)],
+        "probe6_roll_lane": [((x8,), probes.roll_lane, probes.roll_lane_plain)],
+        "probe6_roll_sublane": [((x8,), probes.roll_sublane, probes.roll_sublane_plain)],
+        "probe6_extract": [((x8,), probes.scalar_extract, probes.scalar_extract_plain)],
+        "probe6_bid": [((x8,), probes.broadcast_last_lane, probes.broadcast_last_lane_plain)],
+        "probe6_dot3": [((x8,), probes.onehot_count, probes.onehot_count_plain)],
+        "probe6_rmw": [((i300,), probes.window_rmw, probes.window_rmw_plain)],
+        "probe6_shift": [((x8,), probes.var_shift, probes.var_shift_plain)],
+        "probe7_pack": [((vals7, nbits7), p7(probes.pack_levels, lv), p7(probes.pack_levels_plain, lv))
+                        for lv in (5, 4, 3, 2, 1)],
+        "probe8_a": [((v8,), probes.carry_revisit, probes.carry_revisit_plain)],
+        "probe8_b": [((v8,), probes.carry_scans, probes.carry_scans_plain)],
+        "probe8_c": [((v8,), probes.carry_into_vector, probes.carry_into_vector_plain)],
+        "probe8_d": [((v8,), probes.rmw_loop8, probes.rmw_loop8_plain)],
+    }
+
+    def tensors(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(t for t in out if t is not None)
+
+    errs = {}
+    for name, variants in cases.items():
+        errs[name] = max(max_abs_err(tensors(kernel(*args)), tensors(plain(*args)))
+                         for args, kernel, plain in variants)
+    torch.cuda.synchronize()
+    if any(errs.values()):
+        raise AssertionError(f"probe kernels differ from their plain versions: {errs}")
+    # level 5 packs what kernel A packs
+    from tudocomp_tpu_torch.ops import bitpack_cuda as bc
+
+    words, bits = probes.pack_levels(vals7, nbits7, probes.P7_NWP, 5)
+    if max_abs_err((words[:, 0], bits[:, 0, 0]), bc.pack_blocks(vals7, nbits7, probes.P7_NWP)):
+        raise AssertionError("probe7 level 5 differs from kernel A")
+
+    # the entry point, as `python -m tudocomp_tpu_torch.probes` runs it
+    kernels.reset_counts()
+    if probes.main([]) != 0:
+        raise AssertionError("the probes entry point failed")
+    torch.cuda.synchronize()
+    launches = {name: kernels.counts()[name] for name in cases}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"probe kernels never launched by the entry point: {missing}")
+
+    timing = {}
+    for name, variants in cases.items():
+        args, kernel, plain = variants[0]
+        timing[name] = {
+            "ms": cuda_ms(lambda: kernel(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args), budget_ms=1000.0, max_iters=10),
+            **bound(name, args, tensors(kernel(*args))),
+        }
+    timing["probe3_gather"]["library_ms"] = cuda_ms(lambda: torch.gather(S, 1, idx64))
+    timing["probe6_roll_lane"]["library_ms"] = cuda_ms(lambda: torch.roll(x8, 1, 1))
+    timing["probe6_roll_sublane"]["library_ms"] = cuda_ms(lambda: torch.roll(x8, 1, 0))
+    timing["probe3_gather"]["library_with_index_cast_ms"] = cuda_ms(lambda: torch.gather(S, 1, idx.to(torch.int64)))
+    p7_levels = {f"level {lv}": cuda_ms(lambda: probes.pack_levels(vals7, nbits7, probes.P7_NWP, lv))
+                 for lv in (1, 2, 3, 4, 5)}
+    emit({"phase": "probes", "max_abs_err": errs, "tolerance": 0, "launches": launches, "kernels": timing,
+          "probe7_levels_ms": p7_levels, "gather_shape": [list(S.shape), list(idx.shape)], "card": gpu})
+    return errs, timing, launches
+
+
+def _host_suffix_stack(text, threshold: int = 3):
+    """SA, ISA, LCP and the factors of `text` (sentinel-terminated) from the
+    C++ host helpers, with the host seconds of each stage."""
+    import numpy as np
+
+    from tudocomp_tpu_torch import native
+    from tudocomp_tpu_torch.ds import suffix_array as sa_mod
+
+    lib = native.get_lib()
+    n = len(text)
+    st = {}
+    t0 = time.perf_counter()
+    sa = np.empty(n, np.int32)
+    if lib.tdc_sais(text, n, sa) != 0:
+        raise RuntimeError("tdc_sais failed")
+    t1 = time.perf_counter()
+    isa = sa_mod.inverse_permutation(sa)
+    t2 = time.perf_counter()
+    plcp = np.empty(n, np.int32)
+    lib.tdc_plcp_from_phi(text, n, sa_mod.phi_from_sa(sa), plcp)
+    lcp = sa_mod.lcp_from_plcp(plcp, sa)
+    t3 = time.perf_counter()
+    fpos, fsrc, flen = (np.empty(n, np.uint32) for _ in range(3))
+    nf = lib.tdc_lzss_lcp_factorize(sa, isa, lcp, n, threshold, fpos, fsrc, flen)
+    t4 = time.perf_counter()
+    st = {"tdc_sais": t1 - t0, "tdc_inverse_perm": t2 - t1, "phi, tdc_plcp_from_phi, lcp": t3 - t2,
+          "tdc_lzss_lcp_factorize": t4 - t3}
+    return sa, isa, lcp, (fpos[:nf], fsrc[:nf], flen[:nf]), st
+
+
+def _device_suffix_stack(text, lcp_host, dev, threshold: int = 3):
+    """The same from the card: text up, suffix_array_device, SA and ISA back;
+    lcp_device (kernel H) and the LCP back; SA, ISA, LCP up (as lcp_factorize
+    hands them over), the device factorization, the factors back."""
+    import torch
+
+    from tudocomp_tpu_torch.ds.suffix_array import suffix_array_device
+    from tudocomp_tpu_torch.ops.lzss_torch import lzss_lcp_factorize_device
+    from tudocomp_tpu_torch.ops.plcp_torch import lcp_device
+
+    st = {}
+    t, st["text to the card"] = synced(lambda: torch.from_numpy(text).to(dev))
+    (sa_d, isa_d), st["suffix_array_device"] = synced(lambda: suffix_array_device(t, return_isa=True))
+    (sa, isa), st["SA, ISA back"] = synced(lambda: (sa_d.cpu().numpy(), isa_d.cpu().numpy()))
+    lcp_d, st["lcp_device (phi, kernel H, gather)"] = synced(lambda: lcp_device(t, sa_d))
+    lcp, st["LCP back"] = synced(lambda: lcp_d.cpu().numpy())
+    del sa_d, isa_d, lcp_d
+    up, st["SA, ISA, LCP to the card"] = synced(
+        lambda: [torch.from_numpy(a).to(dev) for a in (sa, isa, lcp_host)])
+    factors, st["lzss_lcp_factorize_device, factors back"] = synced(
+        lambda: lzss_lcp_factorize_device(*up, threshold))
+    return sa, isa, lcp, factors, st
+
+
+def suffix_phase(english, dev, gpu):
+    """Phase 10. Returns (errs, timing) of kernel H."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.ops import plcp_torch
+
+    texts = {"synth_english": english, "dna": dna_bytes(LZSS_BYTES)}
+    report, err_h, line_h, launches_h = {}, 0, None, 0
+    for name, raw in texts.items():
+        text = np.concatenate([raw, np.zeros(1, np.uint8)])  # no 0 byte inside: the sentinel is unique
+        sa, isa, lcp, factors, host_st = _host_suffix_stack(text)
+        small = np.concatenate([raw[: 1 << 20], np.zeros(1, np.uint8)])
+        _device_suffix_stack(small, _host_suffix_stack(small)[2], dev)  # warm the allocator and the kernels
+        kernels.reset_counts()
+        got = _device_suffix_stack(text, lcp, dev)
+        launches_h += kernels.counts()["plcp_segments"]
+        checks = {
+            "SA": np.array_equal(got[0], sa), "ISA": np.array_equal(got[1], isa),
+            "LCP": np.array_equal(got[2], lcp),
+            "factors": all(np.array_equal(g, w) for g, w in zip(got[3], factors)),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"{name}: the card's suffix stack differs from the host's: {checks}")
+        # kernel H against its plain version (the lockstep walk), and its times
+        t, sa_d = torch.from_numpy(text).to(dev), torch.from_numpy(sa).to(dev)
+        plcp_k = plcp_torch.plcp_device(t, sa_d)
+        plcp_p, plain_ms = cuda_once(lambda: plcp_torch.plcp_device_plain(t, sa_d))
+        e = max_abs_err(plcp_k, plcp_p)
+        if e:
+            raise AssertionError(f"{name}: kernel H differs from its plain version by {e}")
+        err_h = max(err_h, e)
+        line = {"ms": cuda_ms(lambda: plcp_torch.plcp_device(t, sa_d), max_iters=5), "plain_ms": plain_ms,
+                **bound("plcp_segments", (t, sa_d), plcp_k)}
+        line_h = line_h or line
+        dev_st = got[4]
+        report[name] = {
+            "n": len(text), "factors": len(factors[0]), "max_lcp": int(lcp.max()), "host_s": host_st,
+            "device_s": dev_st, "kernel_H": line,
+            "sa_device_with_copies_s": sum(dev_st[k] for k in ("text to the card", "suffix_array_device", "SA, ISA back")),
+            "sa_host_with_isa_s": host_st["tdc_sais"] + host_st["tdc_inverse_perm"],
+            "factorize_device_with_copies_s": dev_st["SA, ISA, LCP to the card"]
+            + dev_st["lzss_lcp_factorize_device, factors back"],
+            "factorize_host_s": host_st["tdc_lzss_lcp_factorize"],
+        }
+        del t, sa_d, plcp_k, plcp_p
+        torch.cuda.empty_cache()
+    if launches_h == 0:
+        raise AssertionError("kernel H never launched by lcp_device")
+
+    # the gates' crossovers: prefixes of the English text, host against card
+    sizes = {}
+    for n in (1 << 14, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 22):
+        text = np.concatenate([english[:n], np.zeros(1, np.uint8)])
+        best_h, best_d = None, None
+        for _ in range(3):
+            *_, lcp, _, h = _host_suffix_stack(text)
+            d = _device_suffix_stack(text, lcp, dev)[4]
+            hs = (h["tdc_sais"] + h["tdc_inverse_perm"], h["tdc_lzss_lcp_factorize"],
+                  h["phi, tdc_plcp_from_phi, lcp"])
+            ds = (d["text to the card"] + d["suffix_array_device"] + d["SA, ISA back"],
+                  d["SA, ISA, LCP to the card"] + d["lzss_lcp_factorize_device, factors back"],
+                  d["lcp_device (phi, kernel H, gather)"] + d["LCP back"])
+            best_h = hs if best_h is None else tuple(map(min, best_h, hs))
+            best_d = ds if best_d is None else tuple(map(min, best_d, ds))
+        sizes[str(n)] = {"sa_host_s": best_h[0], "sa_device_s": best_d[0],
+                         "factorize_host_s": best_h[1], "factorize_device_s": best_d[1],
+                         "lcp_host_s": best_h[2], "lcp_device_s": best_d[2]}
+    # the worst texts for the card: one letter, and a period of 1000 bytes
+    # (every segment's first position re-walks a long LCP)
+    repetitive = {}
+    for name, raw in (("a^n", np.full(LZSS_BYTES, 97, np.uint8)),
+                      ("period 1000", np.tile(english[:1000], LZSS_BYTES // 1000))):
+        text = np.concatenate([raw, np.zeros(1, np.uint8)])
+        sa, isa, lcp, factors, h = _host_suffix_stack(text)
+        got = _device_suffix_stack(text, lcp, dev)
+        if not all(np.array_equal(g, w) for g, w in zip((*got[:3], *got[3]), (sa, isa, lcp, *factors))):
+            raise AssertionError(f"{name}: the card's suffix stack differs from the host's")
+        repetitive[name] = {"n": len(text), "mean_lcp": float(lcp.mean()), "host_s": h, "device_s": got[4]}
+    from tudocomp_tpu_torch import device as tdev
+
+    emit({"phase": "suffix stack", "texts": report, "crossover_english_prefix_best_of_3": sizes,
+          "repetitive": repetitive,
+          "gates": {"SA_MIN_N": tdev.SA_MIN_N, "LZSS_MIN_N": tdev.LZSS_MIN_N}, "card": gpu})
+    return {"plcp_segments": err_h}, {"plcp_segments": line_h}
+
+
+def lzss_stages(data: bytes, device: str) -> dict:
+    """Host seconds of each stage of lzss_lcp(coder=huff) on `data`, as the
+    compressor runs them, the card synchronized after each; device "cpu"
+    is run with every gate forced to the host."""
+    import torch
+
+    from tudocomp_tpu_torch.coders.huffman import HuffmanCoder
+    from tudocomp_tpu_torch.compressors import lzss_common
+    from tudocomp_tpu_torch.compressors.lzss_lcp import lcp_factorize
+    from tudocomp_tpu_torch.ds.textds import TextDS
+    from tudocomp_tpu_torch.io.bitio import BitWriter
+    from tudocomp_tpu_torch.io.inout import Input
+    from tudocomp_tpu_torch.io.restrict import InputRestrictions
+    from tudocomp_tpu_torch.meta import AlgorithmValue, Env
+    from tudocomp_tpu_torch.registry import TorchRegistry
+
+    reg = TorchRegistry(device)
+    dev = reg.device
+    st = {}
+    text, st["escape and sentinel"] = synced(
+        lambda: Input(data).with_restrictions(InputRestrictions((0,), True)).as_array())
+    ds = TextDS(text, device=dev)
+    sa, st["SA"] = synced(ds.require_sa)
+    isa, st["ISA"] = synced(ds.require_isa)
+    lcp, st["PLCP, LCP"] = synced(ds.require_lcp)
+    f, st["factorize"] = synced(lambda: lcp_factorize(sa, isa, lcp, 3, dev))
+    w = BitWriter()
+    env = Env(reg, AlgorithmValue("huff", {}, type="coder"))
+    enc, st["literal feed, Huffman table"] = synced(
+        lambda: HuffmanCoder.Encoder(env, w, lzss_common.literal_feed(text, f)))
+    _, st["encode_text"] = synced(lambda: lzss_common.encode_text(enc, w, text, f))
+
+    def finish():
+        enc.finalize()
+        return w.getvalue()
+
+    _, st["finalize, pack"] = synced(finish)
+    st["total"] = sum(st.values())
+    st["factors"] = len(f)
+    return st
+
+
+def lzss_roundtrip_phase(english, dev, gpu) -> None:
+    """Phase 11: the lzss_lcp ids through the driver on the card against the
+    port's host path. Returns kernel H's launches in those encodes."""
+    import torch
+
+    from tudocomp_tpu_torch import device as tdev
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.driver import compress, decompress
+
+    inputs = {"synth_english": english.tobytes(), "dna": dna_bytes(LZSS_BYTES).tobytes()}
+    runs = [(LZSS_ALGO, "synth_english"), (LZSS_ALGO, "dna"),
+            (f"blockwise({LZSS_ALGO},bs={BS})", "synth_english"),
+            (f"blockwise({LZSS_ALGO},bs={BS},shared=1)", "synth_english")]
+    launches_h = 0
+    for algo, which in runs:
+        data = inputs[which]
+        kernels.reset_counts()
+        container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+        launched = kernels.counts()["plcp_segments"]
+        if launched == 0:
+            raise AssertionError(f"{algo} on {which}: kernel H never launched")
+        launches_h += launched
+        back, dec_s = synced(lambda: decompress(container, device="cuda"))
+        if back != data:
+            raise AssertionError(f"{algo} on {which}: device roundtrip differs from the input")
+        t0 = time.perf_counter()
+        ref = ref_compress(algo, data)
+        t1 = time.perf_counter()
+        if container != ref:
+            raise AssertionError(f"{algo} on {which}: container differs from the host path's")
+        if ref_decompress(container) != data:
+            raise AssertionError(f"{algo} on {which}: the host decode differs from the input")
+        t2 = time.perf_counter()
+        _, warm_s = synced(lambda: compress(algo, data, device="cuda"))
+        no_jax()
+        bs = BS if algo.startswith("blockwise") else len(data) + 1
+        emit({"phase": "lzss roundtrip", "algo": algo, "input": which, "bytes": len(data),
+              "container_bytes": len(container), "ratio": len(container) / len(data),
+              "sa_on_card": tdev.use_sa_device(bs, dev), "factorize_on_card": tdev.use_lzss_device(bs, dev),
+              "kernel_H_launches": launched,
+              "first_encode_s": enc_s, "warm_encode_s": warm_s, "decode_s": dec_s,
+              "encode_MBps": len(data) / warm_s / 1e6, "decode_MBps": len(data) / dec_s / 1e6,
+              "host_reference_encode_s": t1 - t0, "host_reference_decode_s": t2 - t1, "card": gpu})
+        del container, back, ref
+    stages = {}
+    for which, data in inputs.items():
+        with host_path():
+            host = lzss_stages(data, "cpu")
+        stages[which] = {"card": lzss_stages(data, "cuda"), "host": host}
+        torch.cuda.empty_cache()
+    emit({"phase": "lzss stages", "algo": LZSS_ALGO, "bytes": LZSS_BYTES, "stages": stages, "card": gpu})
+    return {"plcp_segments": launches_h}
 
 
 if __name__ == "__main__":

@@ -186,3 +186,178 @@ def test_shared_roundtrip_on_the_card(dev, data, monkeypatch):
     assert launches["huffman_tables"] == 0
     assert c == compress(algo, raw, device="cpu")  # the plain versions
     assert decompress(c, device="cpu") == raw  # the host decoder
+
+
+# ---- the probe kernels (csrc/probes.cu) and the lzss_lcp suffix stack -----------------------
+
+
+def test_probe3_gather_kernel(dev):
+    from tudocomp_tpu_torch import probes
+
+    vals, nb = probes.probe3_inputs(dev, B=5, bs=3001)
+    S = probes.hillis_xor(vals)
+    idx = probes.hist2(nb, 900).clamp(0, S.shape[1] - 1)
+    kernels.reset_counts()
+    got = probes.gather(S, idx)
+    torch.cuda.synchronize()
+    assert kernels.counts()["probe3_gather"] == 1
+    _equal((got,), (probes.gather_plain(S, idx),))
+    with pytest.raises(IndexError):
+        probes.gather(S, idx + S.shape[1])
+
+
+@pytest.mark.parametrize("tile", ["arange", "signed"])
+def test_probe6_kernels(dev, tile):
+    from tudocomp_tpu_torch import probes
+
+    if tile == "arange":
+        x = torch.arange(1024, dtype=torch.int32, device=dev).reshape(8, 128)
+    else:
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32)).to(dev)
+    pairs = [
+        (probes.roll_lane, probes.roll_lane_plain, "probe6_roll_lane"),
+        (probes.roll_sublane, probes.roll_sublane_plain, "probe6_roll_sublane"),
+        (probes.scalar_extract, probes.scalar_extract_plain, "probe6_extract"),
+        (probes.broadcast_last_lane, probes.broadcast_last_lane_plain, "probe6_bid"),
+        (probes.onehot_count, probes.onehot_count_plain, "probe6_dot3"),
+        (probes.var_shift, probes.var_shift_plain, "probe6_shift"),
+    ]
+    kernels.reset_counts()
+    for kernel, plain, name in pairs:
+        _equal((kernel(x),), (plain(x),))
+        assert kernels.counts()[name] == 1, name
+    for i in (0, 300, 767):
+        t = torch.tensor([[i]], dtype=torch.int32, device=dev)
+        _equal((probes.window_rmw(t),), (probes.window_rmw_plain(t),))
+    assert kernels.counts()["probe6_rmw"] == 3
+    with pytest.raises(IndexError):
+        probes.window_rmw(torch.tensor([[1152]], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
+def test_probe7_pack_kernel(dev, level):
+    from tudocomp_tpu_torch import probes
+
+    vals, nbits = probes.probe7_inputs(dev)
+    nbits[0, 100:140] = 0  # runs of empty tokens
+    nbits[1, 2000:2040] = 32
+    kernels.reset_counts()
+    got = probes.pack_levels(vals, nbits, probes.P7_NWP, level, want_mid=True)
+    torch.cuda.synchronize()
+    assert kernels.counts()["probe7_pack"] == 1
+    want = probes.pack_levels_plain(vals, nbits, probes.P7_NWP, level, want_mid=True)
+    _equal(got[:2], want[:2])
+    if level in (2, 3, 4):
+        _equal(got[2:], want[2:])
+    else:
+        assert got[2] is None and want[2] is None
+    if level == 5:  # kernel A packs the same arena; a short arena drops bits in both
+        for n_wp in (probes.P7_NWP, 1000):
+            words, bits = probes.pack_levels(vals, nbits, n_wp, 5)
+            a_words, a_bits = bc.pack_blocks(vals, nbits, n_wp)
+            _equal((words[:, 0], bits[:, 0, 0]), (a_words, a_bits))
+    with pytest.raises(ValueError):
+        probes.pack_levels(vals, nbits + 1, probes.P7_NWP, level)
+
+
+def test_probe8_kernels(dev):
+    from tudocomp_tpu_torch import probes
+
+    rng = np.random.default_rng(8)
+    inputs = [
+        torch.ones((2, 3, 8, 128), dtype=torch.int32, device=dev),
+        torch.from_numpy(rng.integers(0, 33, (5, 4, 8, 128)).astype(np.int32)).to(dev),
+    ]
+    pairs = [
+        (probes.carry_revisit, probes.carry_revisit_plain, "probe8_a"),
+        (probes.carry_scans, probes.carry_scans_plain, "probe8_b"),
+        (probes.carry_into_vector, probes.carry_into_vector_plain, "probe8_c"),
+        (probes.rmw_loop8, probes.rmw_loop8_plain, "probe8_d"),
+    ]
+    kernels.reset_counts()
+    for v in inputs:
+        for kernel, plain, _ in pairs:
+            _equal(kernel(v), plain(v))
+    assert all(kernels.counts()[name] == 2 for _, _, name in pairs)
+
+
+def test_probes_entry_point_on_the_card(dev, capsys):
+    from tudocomp_tpu_torch import probes
+
+    kernels.reset_counts()
+    assert probes.main([]) == 0
+    assert "done" in capsys.readouterr().out
+    assert all(n > 0 for k, n in kernels.counts().items() if k.startswith("probe"))
+
+
+def _suffix_texts():
+    rng = np.random.default_rng(9)
+    words = [b"suffix ", b"array ", b"on ", b"the ", b"card. ", b"lcp "]
+    return {
+        "english": b"".join(rng.choice(words, 60000)),
+        "dna": bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 300000)),
+        "a^n": b"a" * 50000,
+        "twice": b"".join(rng.choice(words, 20000)) * 2,
+    }
+
+
+@pytest.mark.parametrize("name", ["english", "dna", "a^n", "twice"])
+def test_suffix_stack_on_the_card(dev, name):
+    """SA, ISA, PLCP, LCP and the factors on the card equal the C++ host code's."""
+    from tudocomp_tpu_torch.compressors.lzss_lcp import lcp_factorize
+    from tudocomp_tpu_torch.ds.suffix_array import suffix_array_device
+    from tudocomp_tpu_torch.ds.textds import TextDS
+    from tudocomp_tpu_torch.ops.lzss_torch import lzss_lcp_factorize_device
+    from tudocomp_tpu_torch.ops.plcp_torch import lcp_device, plcp_device, plcp_device_plain
+
+    text = np.frombuffer(_suffix_texts()[name] + b"\0", np.uint8).copy()
+    ds = TextDS(text, device="cpu")
+    sa, isa, lcp = ds.require_sa(), ds.require_isa(), ds.require_lcp()
+    t = torch.from_numpy(text).to(dev)
+    sa_d, isa_d = suffix_array_device(t, return_isa=True)
+    assert np.array_equal(sa_d.cpu().numpy(), sa) and np.array_equal(isa_d.cpu().numpy(), isa)
+    kernels.reset_counts()
+    assert np.array_equal(lcp_device(t, sa_d).cpu().numpy(), lcp)
+    assert kernels.counts()["plcp_segments"] == 1
+    if name not in ("a^n", "twice"):  # the lockstep walk takes max_lcp / 4 steps for its first lane
+        assert torch.equal(plcp_device(t, sa_d), plcp_device_plain(t, sa_d, seg=512))
+    lcp_d = torch.from_numpy(lcp).to(dev)
+    for threshold in (2, 3):
+        pos, src, ln = lzss_lcp_factorize_device(sa_d, isa_d, lcp_d, threshold)
+        want = lcp_factorize(sa, isa, lcp, threshold, "cpu")
+        assert np.array_equal(pos, want.pos) and np.array_equal(src, want.src) and np.array_equal(ln, want.len)
+
+
+@pytest.mark.parametrize("seg", [2, 3, 32, 1000])
+def test_kernel_h_levels(dev, seg):
+    """Kernel H gives the host's PLCP whatever its segment length, that is
+    however many levels it runs in."""
+    from tudocomp_tpu_torch.ds import suffix_array as sa_mod
+    from tudocomp_tpu_torch.ds.textds import TextDS
+
+    for name in ("a^n", "twice"):
+        text = np.frombuffer(_suffix_texts()[name][:30011] + b"\0", np.uint8).copy()
+        ds = TextDS(text, device="cpu")
+        sa, want = ds.require_sa(), ds.require_plcp()
+        phi = torch.from_numpy(sa_mod.phi_from_sa(sa)).to(dev)
+        plcp = torch.zeros(len(text), dtype=torch.int32, device=dev)
+        t = torch.from_numpy(text).to(dev)
+        kernels.launch("tdc_plcp_segments", t, phi, len(text), seg, plcp)
+        assert np.array_equal(plcp.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "algo", ["lzss_lcp(coder=huff)", "blockwise(lzss_lcp(coder=huff),bs=65536)",
+             "blockwise(lzss_lcp(coder=huff),bs=65536,shared=1)"],
+)
+def test_lzss_roundtrip_on_the_card(dev, algo, monkeypatch):
+    """The device stack (both gates forced on) writes the host stack's bytes."""
+    data = _suffix_texts()["english"][:300000] + _suffix_texts()["dna"][:100000] + b"\0\0tail"
+    monkeypatch.setenv("TDC_DEVICE_SA", "1")
+    monkeypatch.setenv("TDC_DEVICE_LZSS", "1")
+    c = compress(algo, data, device="cuda")
+    assert decompress(c, device="cuda") == data
+    monkeypatch.setenv("TDC_DEVICE_SA", "0")
+    monkeypatch.setenv("TDC_DEVICE_LZSS", "0")
+    assert c == compress(algo, data, device="cpu")

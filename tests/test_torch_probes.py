@@ -1,0 +1,317 @@
+"""The probe kernels' plain versions against the Pallas bodies they replace.
+
+Each plain version in tudocomp_tpu_torch/probes.py is held to the Pallas
+kernel body of etc/probe3.py, probe6.py, probe7.py or probe8.py, run in
+interpret mode on the CPU. Importing those scripts would run them, so the
+test takes the kernel functions out of their sources (ast) and rebuilds the
+pallas_call with the scripts' specs and interpret=True. The two rotations of
+probe6.py are lambdas in the script and are restated here. Inputs come from
+numpy seeds. Everything is integer: tolerance 0.
+"""
+
+import ast
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from tudocomp_tpu_torch import probes
+from tudocomp_tpu_torch.ops.bitpack import pack_tokens
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _functions(script, names, **consts):
+    """The named top-level functions of etc/<script>, compiled in a namespace
+    that holds jax, jnp, pl, pltpu and the given constants."""
+    path = os.path.join(ROOT, "etc", script)
+    tree = ast.parse(open(path).read(), path)
+    keep = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in names]
+    assert {n.name for n in keep} == set(names)
+    ns = {"jax": jax, "jnp": jnp, "pl": pl, "pltpu": pltpu, "np": np, **consts}
+    exec(compile(ast.Module(keep, []), path, "exec"), ns)
+    return [ns[n] for n in names]
+
+
+def _u32(a):
+    return np.asarray(a).astype(np.uint32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---- probe3 ----------------------------------------------------------------------------------
+
+P3_B, P3_BS = 3, 2048
+P3_NT = 393 + P3_BS
+P3_NW = (9 * P3_BS + 4096 + 31) // 32
+
+
+def _probe3_functions():
+    return _functions(
+        "probe3.py", ["hillis_cumsum", "hillis_xor", "hist2", "gather_kernel"],
+        B=P3_B, NT=P3_NT, n_words=P3_NW, LOG=max(1, (P3_NT - 1).bit_length()),
+        NHI=(P3_NW + 1 + 255) // 256,
+    )
+
+
+def _probe3_inputs():
+    rng = np.random.default_rng(3)
+    nb = rng.integers(1, 13, (P3_B, P3_NT)).astype(np.int32)
+    vals = rng.integers(0, 4096, (P3_B, P3_NT)).astype(np.int32)
+    return vals, nb
+
+
+def test_probe3_scans_and_histogram():
+    hillis_cumsum, hillis_xor, hist2, _ = _probe3_functions()
+    vals, nb = _probe3_inputs()
+    np.testing.assert_array_equal(probes.hillis_cumsum(_t(nb)).numpy(), np.asarray(hillis_cumsum(jnp.asarray(nb))))
+    np.testing.assert_array_equal(probes.hillis_cumsum(_t(nb)).numpy(), np.cumsum(nb, axis=1))
+    np.testing.assert_array_equal(
+        probes.hillis_xor(_t(vals)).numpy(), np.asarray(hillis_xor(jnp.asarray(vals).astype(jnp.uint32))).astype(np.int32)
+    )
+    np.testing.assert_array_equal(probes.hist2(_t(nb), P3_NW).numpy(), np.asarray(hist2(jnp.asarray(nb))))
+
+
+def test_probe3_gather():
+    _, hillis_xor, hist2, gather_kernel = _probe3_functions()
+    vals, nb = _probe3_inputs()
+    S = np.asarray(hillis_xor(jnp.asarray(vals).astype(jnp.uint32)))
+    idx = np.clip(np.asarray(hist2(jnp.asarray(nb))), 0, P3_NT - 1).astype(np.int32)
+    want = pl.pallas_call(
+        gather_kernel,
+        grid=(P3_B,),
+        in_specs=[
+            pl.BlockSpec((1, S.shape[1]), lambda b: (b, 0)),
+            pl.BlockSpec((1, idx.shape[1]), lambda b: (b, 0)),
+        ],
+        out_specs=pl.BlockSpec((1, idx.shape[1]), lambda b: (b, 0)),
+        out_shape=jax.ShapeDtypeStruct((P3_B, idx.shape[1]), jnp.uint32),
+        interpret=True,
+    )(jnp.asarray(S), jnp.asarray(idx))
+    got = probes.gather(_t(S.astype(np.int32)), _t(idx))
+    np.testing.assert_array_equal(_u32(got.numpy()), np.asarray(want))
+    np.testing.assert_array_equal(_u32(got.numpy()), np.take_along_axis(S, idx.astype(np.int64), axis=1))
+    with pytest.raises((IndexError, RuntimeError)):
+        probes.gather(_t(S.astype(np.int32)), _t(idx + P3_NT))
+
+
+# ---- probe6 ----------------------------------------------------------------------------------
+
+
+def _tiles():
+    rng = np.random.default_rng(6)
+    return {
+        "arange": np.arange(8 * 128, dtype=np.int32).reshape(8, 128),
+        "random": rng.integers(0, 1 << 31, (8, 128)).astype(np.int32),
+        "signed": rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32),
+    }
+
+
+def _probe6_bodies():
+    k_extract, k_bid, k_dot3, k_shift = _functions("probe6.py", ["k_extract", "k_bid", "k_dot3", "k_shift"])
+
+    def roll_lane(i, o):
+        o[...] = pltpu.roll(i[...], 1, axis=1)
+
+    def roll_sublane(i, o):
+        o[...] = pltpu.roll(i[...], 1, axis=0)
+
+    return {
+        "roll_lane": (roll_lane, probes.roll_lane),
+        "roll_sublane": (roll_sublane, probes.roll_sublane),
+        "scalar_extract": (k_extract, probes.scalar_extract),
+        "broadcast_last_lane": (k_bid, probes.broadcast_last_lane),
+        "onehot_count": (k_dot3, probes.onehot_count),
+        "var_shift": (k_shift, probes.var_shift),
+    }
+
+
+@pytest.mark.parametrize("tile", ["arange", "random", "signed"])
+@pytest.mark.parametrize(
+    "name", ["roll_lane", "roll_sublane", "scalar_extract", "broadcast_last_lane", "onehot_count", "var_shift"]
+)
+def test_probe6_tile_primitives(name, tile):
+    body, port = _probe6_bodies()[name]
+    x = _tiles()[tile]
+    want = pl.pallas_call(body, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32), interpret=True)(jnp.asarray(x))
+    np.testing.assert_array_equal(port(_t(x)).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("i", [0, 127, 300, 767])
+def test_probe6_window_rmw(i):
+    (k_rmw,) = _functions("probe6.py", ["k_rmw"])
+    want = pl.pallas_call(
+        k_rmw,
+        out_shape=jax.ShapeDtypeStruct((1, 1, 1152), jnp.uint32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(jnp.array([[i]], jnp.int32))
+    got = probes.window_rmw(torch.tensor([[i]], dtype=torch.int32))
+    np.testing.assert_array_equal(_u32(got.numpy()), np.asarray(want))
+    with pytest.raises(IndexError):
+        probes.window_rmw(torch.tensor([[1152]], dtype=torch.int32))
+
+
+# ---- probe7 ----------------------------------------------------------------------------------
+
+P7 = dict(WIN=384, B=2, NT=3072, T=3, n_words=1100, NWp=probes.P7_NWP)
+
+
+def _probe7_tokens(seed, thin=False):
+    """The script's tokens (its seed is 0): widths in [0, 32]. With `thin`
+    a fifth of the widths is zeroed, so that the bits end before word 1408:
+    on its own tokens (48513 and 48970 bits) the script's last rows open
+    their 384-word window at word 1408 of an arena of 1664, past its end,
+    and what level 5 then writes is not defined."""
+    rng = np.random.default_rng(seed)
+    nbits = rng.integers(0, 33, (2, 3072)).astype(np.int32)
+    vals = rng.integers(0, 1 << 31, (2, 3072)).astype(np.uint32)
+    if thin:
+        nbits[rng.random((2, 3072)) < 0.2] = 0
+        assert nbits.sum(1).max() < 1408 * 32
+    return vals, nbits
+
+
+def _probe7_pallas(level, vals, nbits):
+    (make,) = _functions("probe7.py", ["make"], **P7)
+    B, T, NWp = 2, 3, probes.P7_NWP
+    return pl.pallas_call(
+        make(level),
+        grid=(B, T),
+        in_specs=[
+            pl.BlockSpec((1, 1, 8, 128), lambda b, t: (b, t, 0, 0)),
+            pl.BlockSpec((1, 1, 8, 128), lambda b, t: (b, t, 0, 0)),
+        ],
+        out_specs=(
+            pl.BlockSpec((1, 1, NWp), lambda b, t: (b, 0, 0)),
+            pl.BlockSpec((1, 1, 1), lambda b, t: (b, 0, 0), memory_space=pltpu.SMEM),
+        ),
+        out_shape=(
+            jax.ShapeDtypeStruct((B, 1, NWp), jnp.uint32),
+            jax.ShapeDtypeStruct((B, 1, 1), jnp.int32),
+        ),
+        scratch_shapes=[pltpu.SMEM((1,), jnp.int32)],
+        interpret=True,
+    )(jnp.asarray(vals.reshape(B, T, 8, 128)), jnp.asarray(nbits.reshape(B, T, 8, 128)))
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
+def test_probe7_levels_match_pallas(level):
+    vals, nbits = _probe7_tokens(0, thin=level == 5)  # the script's own seed and draw order
+    want_words, want_bits = _probe7_pallas(level, vals, nbits)
+    words, bits = probes.pack_levels(_t(vals.astype(np.int32)), _t(nbits), probes.P7_NWP, level)
+    assert words.shape == (2, 1, probes.P7_NWP) and bits.shape == (2, 1, 1)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(want_bits))
+    np.testing.assert_array_equal(bits.numpy().ravel(), nbits.sum(1))
+    np.testing.assert_array_equal(_u32(words.numpy()), np.asarray(want_words))
+    assert bool(words.any()) == (level == 5)
+
+
+def test_probe7_level5_is_pack_tokens():
+    vals, nbits = _probe7_tokens(5)
+    words, bits = probes.pack_levels(_t(vals.astype(np.int32)), _t(nbits), probes.P7_NWP, 5)
+    for b in range(2):
+        w, total = pack_tokens(_t(vals[b].astype(np.int32)), _t(nbits[b]), probes.P7_NWP)
+        np.testing.assert_array_equal(words[b, 0].numpy(), w.numpy())
+        assert int(bits[b, 0, 0]) == int(total)
+
+
+def test_probe7_intermediates_add_up():
+    """What levels 2-4 expose is consistent with level 5's arena: the word
+    parts of level 2 and 3 and the windows of level 4 each rebuild it."""
+    vals, nbits = _probe7_tokens(7)
+    v, nb = _t(vals.astype(np.int32)), _t(nbits)
+    n_wp = probes.P7_NWP
+    want = _u32(probes.pack_levels(v, nb, n_wp, 5)[0].numpy())[:, 0]
+    off = np.cumsum(nbits, axis=1) - nbits
+    w0 = off >> 5
+    for level in (2, 3):
+        mid = _u32(probes.pack_levels(v, nb, n_wp, level, want_mid=True)[2].numpy())
+        got = np.zeros((2, n_wp + 2), np.uint32)
+        for b in range(2):
+            np.bitwise_xor.at(got[b], w0[b], mid[b, :, 0])
+            np.bitwise_xor.at(got[b], w0[b] + 1, mid[b, :, 1])
+        np.testing.assert_array_equal(got[:, :n_wp], want)
+    win = _u32(probes.pack_levels(v, nb, n_wp, 4, want_mid=True)[2].numpy())
+    assert win.shape == (2, 3, probes.TILE_WIN)
+    got = np.zeros((2, n_wp + probes.TILE_WIN), np.uint32)
+    for b in range(2):
+        for t in range(3):
+            abase = ((off[b, t * 1024] >> 5) >> 7) << 7
+            got[b, abase : abase + probes.TILE_WIN] ^= win[b, t]
+    np.testing.assert_array_equal(got[:, :n_wp], want)
+    assert probes.pack_levels(v, nb, n_wp, 1, want_mid=True)[2] is None
+
+
+def test_probe7_rejects_bad_tokens():
+    vals, nbits = _probe7_tokens(1)
+    bad = nbits.copy()
+    bad[0, 5] = 33
+    with pytest.raises(ValueError):
+        probes.pack_levels(_t(vals.astype(np.int32)), _t(bad), probes.P7_NWP, 5)
+    with pytest.raises(ValueError):
+        probes.pack_levels(_t(vals[:, :100].astype(np.int32)), _t(nbits[:, :100].copy()), probes.P7_NWP, 5)
+
+
+# ---- probe8 ----------------------------------------------------------------------------------
+
+
+def _probe8_pallas(kernel, v):
+    B, T, NWp = v.shape[0], v.shape[1], probes.P8_NWP
+    return pl.pallas_call(
+        kernel,
+        grid=(B, T),
+        in_specs=[pl.BlockSpec((1, 1, 8, 128), lambda b, t: (b, t, 0, 0))],
+        out_specs=pl.BlockSpec((1, 1, NWp), lambda b, t: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((B, 1, NWp), jnp.uint32),
+        scratch_shapes=[pltpu.SMEM((1,), jnp.int32)],
+        interpret=True,
+    )(jnp.asarray(v))
+
+
+def _probe8_inputs():
+    rng = np.random.default_rng(8)
+    return {
+        "ones": np.ones((2, 3, 8, 128), np.int32),
+        "random": rng.integers(0, 33, (2, 3, 8, 128)).astype(np.int32),
+    }
+
+
+@pytest.mark.parametrize("data", ["ones", "random"])
+@pytest.mark.parametrize("name", ["k_a", "k_b", "k_c", "k_d"])
+def test_probe8_steps_match_pallas(name, data):
+    (kernel,) = _functions("probe8.py", [name])
+    port = {"k_a": probes.carry_revisit, "k_b": probes.carry_scans,
+            "k_c": probes.carry_into_vector, "k_d": probes.rmw_loop8}[name]
+    v = _probe8_inputs()[data]
+    words, carry = port(_t(v))
+    assert words.shape == (2, 1, probes.P8_NWP)
+    np.testing.assert_array_equal(_u32(words.numpy()), np.asarray(_probe8_pallas(kernel, v)))
+    want_carry = {
+        "k_a": v[:, :, 0, 0].sum(1), "k_b": v.sum((1, 2, 3)),
+        "k_c": v[:, :, 7, :].sum((1, 2)), "k_d": np.zeros(2),
+    }[name]
+    np.testing.assert_array_equal(carry.numpy(), want_carry)
+
+
+def test_probes_entry_point_runs_on_the_cpu(capsys):
+    assert probes.main(["6", "7", "8", "--device", "cpu"]) == 0
+    probes.run_probe3(torch.device("cpu"), B=2, bs=4096)  # the entry point runs it at 64 x 2^18
+    out = capsys.readouterr().out
+    for line in ("gather", "roll_lane", "dyn_ds_rmw", "level 5", "rmw_loop8", "done"):
+        assert line in out
+
+
+def test_probes_entry_point_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this case checks the machine without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probes.main(["6"])

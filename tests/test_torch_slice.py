@@ -152,9 +152,20 @@ _JAX_FREE = textwrap.dedent(
         ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in coders]
         ids += [f"lz78(coder=bit,lz78trie={t})" for t in reg.names("lz78trie")]
         ids += ["blockwise(encode(huff),bs=4096,shared=1)", "blockwise(lzw(coder=gamma),bs=4096)"]
+        # the lzss_lcp slice: every coder, the textds providers, blockwise
+        ids += [f"lzss_lcp(coder={k})" for k in coders]
+        ids += ["lzss_lcp(coder=huff,textds=textds(isa=sparse_isa,lcp=compressed_lcp,cm=delayed))",
+                "blockwise(lzss_lcp(coder=huff),bs=4096)", "blockwise(lzss_lcp(coder=huff),bs=4096,shared=1)"]
         for algo in ids:
             c = compress(algo, data, device="cpu")
             assert decompress(c, device="cpu") == data, algo
+        lzss = ("lzss_lcp(coder=huff)", "blockwise(lzss_lcp(coder=huff),bs=4096,shared=1)")
+        host = [compress(algo, data, device="cpu") for algo in lzss]
+        for sa, lz in ("11", "10", "01"):  # the device suffix array and factorization, forced
+            os.environ["TDC_DEVICE_SA"], os.environ["TDC_DEVICE_LZSS"] = sa, lz
+            assert [compress(algo, data, device="cpu") for algo in lzss] == host, (sa, lz)
+        from tudocomp_tpu_torch import probes
+        assert probes.main(["6", "7", "8", "--device", "cpu"]) == 0
         print(len(ids), "ids")
     else:
         try:
@@ -185,12 +196,14 @@ def test_port_runs_without_jax(device):
 
 def _host_ids():
     """Every id the port registers outside blockwise: each coder under
-    encode, lz78 and lzw, each lz78trie under lz78 and lzw, and the hash
-    axes of the hash tries."""
+    encode, lz78, lzw and lzss_lcp, each lz78trie under lz78 and lzw, the
+    hash axes of the hash tries, and the textds providers."""
     from tudocomp_tpu_torch.registry import TorchRegistry
 
     reg = TorchRegistry("cpu")
     ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in reg.names("coder")]
+    ids += [f"lzss_lcp(coder={k})" for k in reg.names("coder")]
+    ids += [f"lzss_lcp(coder=huff,textds=textds(isa={i},lcp={l}))" for i in reg.names("isa") for l in reg.names("lcp")]
     ids += [f"{c}(coder=bit,lz78trie={t})" for c in ("lz78", "lzw") for t in reg.names("lz78trie")]
     ids += [
         "lz78(coder=gamma,lz78trie=hash(hash_function=vigna,hash_prober=quadratic,hash_manager=direct))",
@@ -235,7 +248,8 @@ def test_port_imports_nothing_of_the_jax_package():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "tudocomp_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    assert len(paths) > 30
+    assert len(paths) > 45
+    assert any(p.endswith("probes.py") for p in paths)
     bad = [
         (os.path.relpath(p, ROOT), m)
         for p in paths
@@ -248,7 +262,8 @@ def test_port_imports_nothing_of_the_jax_package():
 @pytest.mark.parametrize(
     "algo",
     ["encode(huff)", "lz78(coder=bit)", "lz78(coder=gamma)", "lzw(coder=bit)",
-     "blockwise(encode(huff),bs=1024,shared=1)"],
+     "blockwise(encode(huff),bs=1024,shared=1)", "lzss_lcp(coder=huff)",
+     "lzss_lcp(coder=gamma,textds=textds(isa=sparse_isa))"],
 )
 def test_host_path_without_the_cpp_helpers(algo, monkeypatch):
     """Where g++ is missing the port's host layers take their Python paths

@@ -225,3 +225,13 @@ class Decoder(Algorithm):
     def literal_fixed_width(self) -> int | None:
         """Bits per literal_r symbol if fixed (enables bulk decode), else None."""
         return 8
+
+    def stream_parse_tables(self):
+        """Support marker for the C++ lzss stream parse
+        (tdc_lzss_stream_parse): (0, None) when all ranges decode as plain
+        binary with raw 8-bit literals (the bit coder), (1, tables) for
+        canonical-Huffman literals (huffman.py override), None when the
+        coder uses other universal codes (gamma/delta/ternary/ascii/...)."""
+        if type(self).decode is Decoder.decode:
+            return (0, None)
+        return None

@@ -223,6 +223,15 @@ class HuffmanCoder:
         def literal_fixed_width(self):
             return 8 if self.table is None else None
 
+        def stream_parse_tables(self):
+            if self.table is None:
+                return (0, None)  # degenerate: raw 8-bit literals
+            t = self.table
+            fc = np.ascontiguousarray(t.firstcodes, np.uint64)
+            psl = np.ascontiguousarray(self._psl, np.int64)
+            syms = np.ascontiguousarray(t.ordered_map_from_effective, np.uint8)
+            return (1, (fc, psl, syms, int(t.longest)))
+
         def decode(self, r: Range) -> int:
             if not isinstance(r, LiteralRange):
                 return super().decode(r)

@@ -9,6 +9,9 @@ routing is tudocomp_tpu/compressors/blockwise.py's: encode(huff) goes to
 the device runtime where device.use_device says so (TDC_DEVICE_HUFF), and
 always with shared=1, whose one table of the whole input no per-block host
 coder builds (the JAX package's encode route reads no override either);
+lzss_lcp(coder=huff) with shared=1 goes to the runtime's
+blockwise_lzss_compress, which codes every block's literals with one table
+(without shared=1 its blocks go through the driver: the same bytes);
 an inner with a batch hook (`compress_block_batch`:
 lz78, lzw) codes all blocks at once where its gate says so; every other
 block goes through the port's driver with raw=True, which wraps it with
@@ -64,6 +67,23 @@ class BlockwiseCompressor(Compressor):
                 with StatPhase("device blockwise encode") as ph:
                     ph.log("bs", bs)
                     out.write(blockwise_huffman_compress(data, bs, device, shared_table=shared))
+                return
+        if av.name == "lzss_lcp" and av.options.get("coder") is not None:
+            if av.options["coder"].name == "huff" and self.env.option("shared").as_integer():
+                from ..parallel.runtime import blockwise_lzss_compress
+
+                with StatPhase("blockwise lzss, shared table") as ph:
+                    ph.log("bs", bs)
+                    out.write(
+                        blockwise_lzss_compress(
+                            data,
+                            bs,
+                            device,
+                            threshold=int(av.options.get("threshold", "3")),
+                            shared_table=True,
+                            registry=self.env.registry,
+                        )
+                    )
                 return
         blocks, n_valid = split_blocks(data, bs)
         batch = getattr(comp, "compress_block_batch", None)

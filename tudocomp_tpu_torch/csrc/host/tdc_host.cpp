@@ -7,7 +7,11 @@
 //   - the LZW parse (the same trie) and decode;
 //   - the token pack and read of the bit writer and reader;
 //   - the canonical Huffman bulk decodes (table and first-code forms);
-//   - the segmented token interleave of coders/base.py.
+//   - the segmented token interleave of coders/base.py;
+//   - the suffix stack of lzss_lcp: SA-IS, the phi-algorithm PLCP, the
+//     inverse permutation, phi and gather helpers, the SparseISA shortcut
+//     build, the monotone-stack LZSS factorizer, and the lzss stream parse
+//     and factor copy of the decoder.
 // Every entry point returns what the JAX package's copy returns on the same
 // input, so the port's host path writes the same bytes. The JAX package's
 // other trie backends are left out: every trie gives the same factors, so
@@ -414,6 +418,446 @@ int64_t tdc_segment_interleave(const uint64_t* vals, const int64_t* bits,
     return o;
 }
 
-// Queue-list decoder (capability mirror of
+}  // extern "C"
 
+// ---------------------------------------------------------------------------
+// Suffix array via SA-IS (Nong/Zhang/Chan 2009, induced sorting), written
+// from scratch. Replaces the reference's vendored divsufsort
+// (util/divsufsort.hpp) as the host-side SA constructor; same output
+// contract (end-of-string sorts before every character).
+
+namespace {
+
+// s: values in [0, K), s[n-1] must be the unique smallest value.
+// sa: output buffer of length n.
+// Templated on the character type so the top level runs directly on the
+// u8 text (4x less read traffic than widening to int32) ; the per-level
+// histogram is counted ONCE and bucket cursors are re-derived from it
+// (the original recounted the full histogram on every induce pass — four
+// O(n) counting sweeps per level).
+template <typename CharT>
+void sais_rec(CharT* s, int32_t* sa, int64_t n, int64_t K) {
+    if (n == 1) {
+        sa[0] = 0;
+        return;
+    }
+    // the S/L type bit rides the spare top bit of each character, so the
+    // induce loops pay ONE random read (s[j]) instead of two (s[j]+t[j]);
+    // alphabet values stay well below the bit (<= 257 at the top level,
+    // < n/2 < 2^30 in recursions)
+    constexpr CharT TBIT = (CharT)((CharT)1 << (sizeof(CharT) * 8 - 2));
+    constexpr CharT CMASK = (CharT)(TBIT - 1);
+    std::vector<uint8_t> t((size_t)n);
+    t[n - 1] = 1;
+    for (int64_t i = n - 2; i >= 0; --i)
+        t[i] = (s[i] < s[i + 1]) || (s[i] == s[i + 1] && t[i + 1]);
+    auto isLMS = [&](int64_t i) { return i > 0 && t[i] && !t[i - 1]; };
+
+    std::vector<int64_t> cnt((size_t)K + 1, 0);
+    for (int64_t i = 0; i < n; ++i) cnt[s[i]]++;
+    for (int64_t i = 0; i < n; ++i)
+        if (t[i]) s[i] |= TBIT;
+    std::vector<int64_t> bkt((size_t)K + 1);
+    auto getBuckets = [&](bool end) {
+        int64_t sum = 0;
+        for (int64_t k = 0; k <= K; ++k) {
+            sum += cnt[k];
+            bkt[k] = end ? sum : sum - cnt[k];
+        }
+    };
+    auto induceL = [&]() {
+        getBuckets(false);
+        for (int64_t i = 0; i < n; ++i) {
+            int32_t pf = sa[i + 16 < n ? i + 16 : n - 1];
+            if (pf > 0) __builtin_prefetch(&s[pf - 1]);
+            int32_t sv = sa[i];
+            if (sv > 0) {
+                CharT v = s[sv - 1];
+                if (!(v & TBIT)) sa[bkt[v]++] = sv - 1;
+            }
+        }
+    };
+    auto induceS = [&]() {
+        getBuckets(true);
+        for (int64_t i = n - 1; i >= 0; --i) {
+            int32_t pf = sa[i - 16 >= 0 ? i - 16 : 0];
+            if (pf > 0) __builtin_prefetch(&s[pf - 1]);
+            int32_t sv = sa[i];
+            if (sv > 0) {
+                CharT v = s[sv - 1];
+                if (v & TBIT) sa[--bkt[v & CMASK]] = sv - 1;
+            }
+        }
+    };
+
+    // stage 1: sort LMS substrings by induced sorting
+    getBuckets(true);
+    std::fill(sa, sa + n, -1);
+    for (int64_t i = 1; i < n; ++i)
+        if (isLMS(i)) sa[--bkt[s[i] & CMASK]] = (int32_t)i;
+    induceL();
+    induceS();
+
+    // compact sorted LMS positions
+    int64_t n1 = 0;
+    for (int64_t i = 0; i < n; ++i)
+        if (sa[i] > 0 && isLMS(sa[i])) sa[n1++] = sa[i];
+
+    // name LMS substrings in sa[n1..n)
+    std::fill(sa + n1, sa + n, -1);
+    int64_t name = 0, prev = -1;
+    for (int64_t i = 0; i < n1; ++i) {
+        int64_t pos = sa[i];
+        bool diff = false;
+        if (prev < 0) {
+            diff = true;
+        } else {
+            for (int64_t d = 0;; ++d) {
+                // packed chars carry the type bit: one compare covers
+                // both the character and the S/L type
+                if (pos + d >= n || prev + d >= n ||
+                    s[pos + d] != s[prev + d]) {
+                    diff = true;
+                    break;
+                }
+                if (d > 0 && (isLMS(pos + d) || isLMS(prev + d))) break;
+            }
+        }
+        if (diff) {
+            ++name;
+            prev = pos;
+        }
+        sa[n1 + pos / 2] = (int32_t)(name - 1);
+    }
+    for (int64_t i = n - 1, j = n - 1; i >= n1; --i)
+        if (sa[i] >= 0) sa[j--] = sa[i];
+
+    // stage 2: recurse if names are not yet unique
+    int32_t* s1 = sa + n - n1;
+    if (name < n1) {
+        sais_rec(s1, sa, n1, name);
+    } else {
+        for (int64_t i = 0; i < n1; ++i) sa[s1[i]] = (int32_t)i;
+    }
+
+    // stage 3: induce the full SA from the sorted LMS suffixes
+    for (int64_t i = 1, j = 0; i < n; ++i)
+        if (isLMS(i)) s1[j++] = (int32_t)i;  // s1 now maps rank index -> pos
+    for (int64_t i = 0; i < n1; ++i) sa[i] = s1[sa[i]];
+    std::fill(sa + n1, sa + n, -1);
+    getBuckets(true);
+    for (int64_t i = n1 - 1; i >= 0; --i) {
+        int64_t j = sa[i];
+        sa[i] = -1;
+        sa[--bkt[s[j] & CMASK]] = (int32_t)j;
+    }
+    induceL();
+    induceS();
+}
+
+
+}  // namespace
+
+extern "C" {
+
+// Suffix array of `text` with end-of-string < every byte (the divsufsort /
+// prefix-doubling contract). Returns 0 on success.
+int32_t tdc_sais(const uint8_t* text, int64_t n, int32_t* sa_out) {
+    if (n <= 0) return 0;
+    if (n == 1) {
+        sa_out[0] = 0;
+        return 0;
+    }
+    // shift alphabet by +1 and append a unique 0 sentinel; u16 keeps the
+    // top-level induce sweeps at half the read traffic of an i32 copy
+    std::vector<uint16_t> s((size_t)n + 1);
+    for (int64_t i = 0; i < n; ++i) s[i] = (uint16_t)(text[i] + 1);
+    s[n] = 0;
+    std::vector<int32_t> sa((size_t)n + 1);
+    sais_rec(s.data(), sa.data(), n + 1, 257);
+    std::memcpy(sa_out, sa.data() + 1, (size_t)n * sizeof(int32_t));
+    return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// lzss_lcp factorization (exact semantics of LZSSLCPCompressor::compress,
+// LZSSLCPCompressor.hpp:42-115): greedy left-to-right; at text position i
+// the candidate is the longer of the PSV/NSV matches in SA order, ties
+// prefer PSV. PSV/NSV positions with their min-LCP values are precomputed
+// by monotone-stack passes (replacing the reference's naive per-position
+// scans with an O(n) ANSV pass — SURVEY.md §7 step 6).
+// Buffers fpos/fsrc/flen must hold n entries. Returns factor count.
+int64_t tdc_lzss_lcp_factorize(const int32_t* sa, const int32_t* isa,
+                               const int32_t* lcp, int64_t n,
+                               int64_t threshold, uint32_t* fpos,
+                               uint32_t* fsrc, uint32_t* flen) {
+    if (n == 0) return 0;
+    // psv_lcp[j] = min lcp over (psv_j, j] where psv_j = nearest j' < j with
+    // sa[j'] < sa[j]; psv_src[j] = sa[psv_j]. Stack entries carry the min
+    // lcp of their segment (between the entry below and themselves).
+    // The four candidate values of SA position j live INTERLEAVED in one
+    // 16-byte group (cand[4j..4j+3] = psv_lcp, nsv_lcp, psv_src,
+    // nsv_src): the greedy walk below reads all four per visited
+    // position, so one cache line serves what four separate arrays
+    // answered with four misses.
+    std::vector<int32_t> cand((size_t)n * 4);
+    {
+        std::vector<int32_t> st_idx;
+        std::vector<int32_t> st_min;
+        for (int64_t j = 0; j < n; ++j) {
+            int32_t m = lcp[j];
+            while (!st_idx.empty() && sa[st_idx.back()] > sa[j]) {
+                m = std::min(m, st_min.back());
+                st_idx.pop_back();
+                st_min.pop_back();
+            }
+            if (st_idx.empty()) {
+                cand[4 * j] = 0;
+                cand[4 * j + 2] = -1;
+            } else {
+                cand[4 * j] = m;
+                cand[4 * j + 2] = sa[st_idx.back()];
+            }
+            st_idx.push_back((int32_t)j);
+            st_min.push_back(m);
+        }
+    }
+    {
+        std::vector<int32_t> st_idx;
+        std::vector<int32_t> st_min;
+        for (int64_t j = n - 1; j >= 0; --j) {
+            int32_t m = j + 1 < n ? lcp[j + 1] : 0;
+            // min lcp over (j, nsv] accumulates while popping
+            int32_t run = 0x7FFFFFFF;
+            while (!st_idx.empty() && sa[st_idx.back()] > sa[j]) {
+                run = std::min(run, st_min.back());
+                st_idx.pop_back();
+                st_min.pop_back();
+            }
+            if (st_idx.empty()) {
+                cand[4 * j + 1] = 0;
+                cand[4 * j + 3] = -1;
+            } else {
+                cand[4 * j + 1] = std::min(m, run);
+                cand[4 * j + 3] = sa[st_idx.back()];
+            }
+            // this entry's segment min: lcp between j and the element above
+            st_idx.push_back((int32_t)j);
+            st_min.push_back(std::min(m, run));
+        }
+    }
+    // Greedy walk over VISITED positions only. (A text-order gather pass
+    // for all n positions was tried and reverted: the walk visits only
+    // ~20-40% of positions on repetitive inputs, so precomputing every
+    // candidate tripled the random-read volume and the stage wall time.)
+    // Speculative prefetch of the literal-successor candidate hides part
+    // of the remaining two misses per step.
+    int64_t nf = 0;
+    for (int64_t i = 0; i + 1 < n;) {
+        int32_t j = isa[i];
+        if (i + 2 < n) {
+            __builtin_prefetch(&isa[i + 1]);
+            __builtin_prefetch(&cand[4 * (size_t)isa[i + 1]]);
+        }
+        const int32_t* c = &cand[4 * (size_t)j];
+        int32_t pl = c[0], nl = c[1];
+        int32_t maxl = pl >= nl ? pl : nl;  // ties prefer PSV (reference)
+        if (maxl >= threshold) {
+            fpos[nf] = (uint32_t)i;
+            fsrc[nf] = (uint32_t)(pl >= nl ? c[2] : c[3]);
+            flen[nf] = (uint32_t)maxl;
+            ++nf;
+            i += maxl;
+        } else {
+            ++i;
+        }
+    }
+    return nf;
+}
+
+// SparseISA shortcut construction (ds/SparseISA.hpp cycle decomposition):
+// walks every cycle of the SA permutation, marks each t-th element and
+// stores its t-steps-back cycle predecessor. has[i] in {0,1}; val[i] is
+// meaningful only where has[i] = 1.
+void tdc_sparse_isa_build(const int64_t* sa, int64_t n, int64_t t,
+                          uint8_t* has, int64_t* val) {
+    std::vector<uint8_t> visited((size_t)n, 0);
+    std::memset(has, 0, (size_t)n);
+    std::vector<int64_t> cycle;
+    for (int64_t start = 0; start < n; ++start) {
+        if (visited[start]) continue;
+        cycle.clear();
+        int64_t j = start;
+        while (!visited[j]) {
+            visited[j] = 1;
+            cycle.push_back(j);
+            j = sa[j];
+        }
+        const int64_t L = (int64_t)cycle.size();
+        for (int64_t k = 0; k < L; k += t) {
+            const int64_t pos = cycle[(size_t)k];
+            has[pos] = 1;
+            val[pos] = cycle[(size_t)(((k - t) % L + L) % L)];
+        }
+    }
+}
+
+// Kärkkäinen phi-algorithm PLCP (semantics of ds/PLCPFromPhi.hpp:38-44,
+// with explicit bounds instead of relying on the sentinel).
+void tdc_plcp_from_phi(const uint8_t* text, int64_t n, const int32_t* phi,
+                       int32_t* plcp) {
+    int64_t l = 0;
+    for (int64_t i = 0; i + 1 < n; ++i) {
+        int64_t p = phi[i];
+        while (i + l < n && p + l < n && text[i + l] == text[p + l]) ++l;
+        plcp[i] = (int32_t)l;
+        if (l) --l;
+    }
+    if (n > 0) plcp[n - 1] = 0;
+}
+
+// Random-access permutation helpers for the SA pipeline's derived arrays
+// (ISAFromSA.hpp / PhiFromSA.hpp / LCPFromPLCP.hpp). numpy's fancy
+// indexing is memory-latency-bound on 16M-scale scatters; issuing
+// software prefetches ~32 iterations ahead overlaps the misses.
+
+void tdc_inverse_perm(const int32_t* sa, int64_t n, int32_t* isa) {
+    const int64_t D = 32;
+    for (int64_t i = 0; i < n; ++i) {
+        if (i + D < n) __builtin_prefetch(&isa[sa[i + D]], 1);
+        isa[sa[i]] = (int32_t)i;
+    }
+}
+
+void tdc_gather_i32(const int32_t* vals, const int32_t* idx, int64_t n,
+                    int32_t* out) {
+    const int64_t D = 32;
+    for (int64_t i = 0; i < n; ++i) {
+        if (i + D < n) __builtin_prefetch(&vals[idx[i + D]]);
+        out[i] = vals[idx[i]];
+    }
+}
+
+void tdc_phi_from_sa(const int32_t* sa, int64_t n, int32_t* phi) {
+    if (n == 0) return;
+    const int64_t D = 32;
+    phi[sa[0]] = sa[n - 1];
+    for (int64_t i = 1; i < n; ++i) {
+        if (i + D < n) __builtin_prefetch(&phi[sa[i + D]], 1);
+        phi[sa[i]] = sa[i - 1];
+    }
+}
+
+}  // extern "C"
+
+namespace {
+// MSB-first bit cursor over the stream payload; bits past `valid` read 0
+// (mirror of io/bitio.py BitReader semantics incl. EOF zero-padding).
+struct BitCursor {
+    const uint8_t* data;
+    int64_t nbytes;
+    int64_t pos;
+    int64_t valid;
+    bool eof() const { return pos >= valid; }
+    int bit() {
+        int64_t p = pos++;
+        if (p >= valid) return 0;
+        return (data[p >> 3] >> (7 - (p & 7))) & 1;
+    }
+    uint64_t read(int nb) {
+        if (nb <= 0) return 0;
+        int64_t p = pos;
+        pos += nb;
+        if (nb <= 56 && ((p >> 3) + 8) <= nbytes && p + nb <= valid) {
+            uint64_t w = 0;
+            const uint8_t* q = data + (p >> 3);
+            for (int i = 0; i < 8; ++i) w = (w << 8) | q[i];
+            return (w >> (64 - (p & 7) - nb)) & ((1ULL << nb) - 1);
+        }
+        uint64_t v = 0;
+        for (int i = 0; i < nb; ++i) {
+            int64_t q = p + i;
+            int b = (q < valid) ? ((data[q >> 3] >> (7 - (q & 7))) & 1) : 0;
+            v = (v << 1) | (uint64_t)b;
+        }
+        return v;
+    }
+};
+
+inline int bits_for64(uint64_t x) { return x ? (64 - __builtin_clzll(x)) : 1; }
+
+}  // namespace
+
+extern "C" {
+// Shared lzss stream parse (lzss/LZSSCoding.hpp:94-140 loop shape): after the
+// caller decoded the header (n, flen_min, flen_max, fdist_max), parse
+// [gap-flag | gap len | gap literals | src | len]* placing gap literals at
+// their absolute positions in `out` and collecting factors. Literals are
+// raw 8-bit (bit coder / degenerate huff) or canonical-Huffman codes
+// (use_huff=1 with the table arrays). Returns factor count, -1 on a
+// malformed stream; cursor_out[0] = decoded length.
+int64_t tdc_lzss_stream_parse(const uint8_t* data, int64_t nbytes,
+                              int64_t start_bit, int64_t valid_bits,
+                              int64_t n, int64_t flen_min, int64_t flen_max,
+                              int64_t fdist_max, int32_t use_huff,
+                              const uint64_t* firstcodes, const int64_t* psl,
+                              const uint8_t* ordered_syms, int32_t longest,
+                              uint8_t* out, uint32_t* tgt, uint32_t* srcs,
+                              uint32_t* lens, int64_t* cursor_out) {
+    BitCursor cur{data, nbytes, start_bit, valid_bits};
+    const int w_text = bits_for64((uint64_t)n);
+    const int w_dist = bits_for64((uint64_t)fdist_max);
+    const int w_len = bits_for64((uint64_t)(flen_max - flen_min));
+    int64_t cursor = 0, nf = 0;
+    while (!cur.eof()) {
+        int64_t num = cur.bit() ? (int64_t)cur.read(w_dist) : 0;
+        if (num) {
+            if (cursor + num > n) return -1;
+            if (use_huff) {
+                for (int64_t i = 0; i < num; ++i) {
+                    uint64_t value = 0;
+                    int len = 0;
+                    while (len < longest) {
+                        value = (value << 1) | (uint64_t)cur.bit();
+                        ++len;
+                        if (value >= firstcodes[len - 1]) break;
+                    }
+                    out[cursor++] =
+                        ordered_syms[psl[len - 1] +
+                                     (int64_t)(value - firstcodes[len - 1])];
+                }
+            } else {
+                for (int64_t i = 0; i < num; ++i)
+                    out[cursor++] = (uint8_t)cur.read(8);
+            }
+        }
+        if (!cur.eof()) {
+            int64_t src = (int64_t)cur.read(w_text);
+            int64_t ln = flen_min + (int64_t)cur.read(w_len);
+            if (cursor + ln > n || src > n || nf >= n) return -1;
+            tgt[nf] = (uint32_t)cursor;
+            srcs[nf] = (uint32_t)src;
+            lens[nf] = (uint32_t)ln;
+            ++nf;
+            cursor += ln;
+        }
+    }
+    cursor_out[0] = cursor;
+    return nf;
+}
+
+// DecodeBackBuffer factor resolution (lzss/LZSSDecodeBackBuffer.hpp):
+// in-order byte-wise copies; overlapping self-referential factors replicate.
+void tdc_lzss_apply_factors(uint8_t* out, const uint32_t* tgt,
+                            const uint32_t* srcs, const uint32_t* lens,
+                            int64_t nf) {
+    for (int64_t j = 0; j < nf; ++j) {
+        uint8_t* d = out + tgt[j];
+        const uint8_t* s = out + srcs[j];
+        for (uint32_t i = 0; i < lens[j]; ++i) d[i] = s[i];
+    }
+}
 }  // extern "C"

@@ -52,6 +52,21 @@ KERNELS = {
     "tdc_decode_payloads": ("decode_payloads", [_P, _L, _P, _P, _P, _P, _I, _P, _L, _P, _P]),
     "tdc_lz78_parse": ("lz78_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P, _P]),
     "tdc_lzw_parse": ("lzw_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P]),
+    "tdc_plcp_segments": ("plcp_segments", [_P, _P, _L, _I, _P, _P]),
+    # csrc/probes.cu
+    "tdc_probe3_gather": ("probe3_gather", [_P, _P, _P, _I, _L, _L, _P, _P]),
+    "tdc_probe6_roll_lane": ("probe6_roll_lane", [_P, _P, _P]),
+    "tdc_probe6_roll_sublane": ("probe6_roll_sublane", [_P, _P, _P]),
+    "tdc_probe6_extract": ("probe6_extract", [_P, _P, _P]),
+    "tdc_probe6_bid": ("probe6_bid", [_P, _P, _P]),
+    "tdc_probe6_dot3": ("probe6_dot3", [_P, _P, _P]),
+    "tdc_probe6_rmw": ("probe6_rmw", [_P, _P, _I, _P, _P]),
+    "tdc_probe6_shift": ("probe6_shift", [_P, _P, _P]),
+    "tdc_probe7_pack": ("probe7_pack", [_P, _P, _I, _L, _I, _P, _P, _I, _P, _P, _P]),
+    "tdc_probe8_a": ("probe8_a", [_P, _I, _I, _I, _P, _P, _P]),
+    "tdc_probe8_b": ("probe8_b", [_P, _I, _I, _I, _P, _P, _P]),
+    "tdc_probe8_c": ("probe8_c", [_P, _I, _I, _I, _P, _P, _P]),
+    "tdc_probe8_d": ("probe8_d", [_P, _I, _I, _I, _P, _P, _P, _P]),
 }
 
 _counts = {name: 0 for name, _ in KERNELS.values()}

@@ -10,6 +10,8 @@ tudocomp_tpu/literals.py.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 
@@ -34,3 +36,22 @@ class ViewLiterals(NoLiterals):
 
     def positions(self) -> np.ndarray:
         return np.arange(len(self._view), dtype=np.int64)
+
+
+class ArrayLiterals(NoLiterals):
+    """Explicit (chars, positions) feed; used by compressor-specific feeds
+    like lzss TextLiterals (compressors/lzss/LZSSLiterals.hpp:11-50)."""
+
+    def __init__(self, chars, positions: Optional[np.ndarray] = None):
+        self._chars = np.asarray(chars, dtype=np.uint8)
+        self._positions = (
+            np.asarray(positions, dtype=np.int64)
+            if positions is not None
+            else np.arange(len(self._chars), dtype=np.int64)
+        )
+
+    def chars(self) -> np.ndarray:
+        return self._chars
+
+    def positions(self) -> np.ndarray:
+        return self._positions

@@ -61,6 +61,7 @@ class Meta:
         self.doc = doc
         self.options: dict[str, OptionDecl] = {}
         self.input_restrictions = InputRestrictions()
+        self.textds_flags = 0
 
     def option(self, name: str) -> _OptionBuilder:
         return _OptionBuilder(self, name)
@@ -73,6 +74,11 @@ class Meta:
 
     def set_input_restrictions(self, rest: InputRestrictions) -> None:
         self.input_restrictions = self.input_restrictions | rest
+
+    def uses_textds(self, flags: int) -> None:
+        self.textds_flags |= flags
+        # text ds construction requires a unique 0 sentinel (TextDS semantics)
+        self.needs_sentinel_terminator()
 
 
 @dataclass

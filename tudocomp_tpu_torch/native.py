@@ -2,8 +2,10 @@
 
 The port's copy of tudocomp_tpu/native.py, trimmed to the entry points the
 port's host layers call: the LZ78/LZW parses and decodes, the token pack
-and read of the bit writer and reader, the canonical Huffman bulk decodes
-and the segmented token interleave. The library is built with g++ at first
+and read of the bit writer and reader, the canonical Huffman bulk decodes,
+the segmented token interleave, and the suffix stack of lzss_lcp (SA-IS,
+PLCP, the permutation helpers, the SparseISA build, the LZSS factorizer and
+the lzss stream parse and factor copy). The library is built with g++ at first
 use into `build/tudocomp_tpu_torch/` at the repository root (git-ignored),
 named by a hash of the source, so a change rebuilds. Every caller keeps a
 pure-Python fallback, so the host path runs, slower, where no compiler is
@@ -65,6 +67,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         return np.ctypeslib.ndpointer(dtype, flags="C_CONTIGUOUS")
 
     u8p, u32p, i64p, u64p = arr(np.uint8), arr(np.uint32), arr(np.int64), arr(np.uint64)
+    i32p = arr(np.int32)
     signatures = {
         "tdc_lz78_parse": (i64, [u8p, i64, u32p, u8p]),
         "tdc_lz78_decode": (i64, [u32p, u8p, i64, u8p, i64]),
@@ -77,6 +80,19 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tdc_segment_interleave": (
             i64, [u64p, i64p, i64p, i64p, i64p, i64p, i64, i64, u64p, i64p],
         ),
+        "tdc_sais": (i32, [u8p, i64, i32p]),
+        "tdc_plcp_from_phi": (None, [u8p, i64, i32p, i32p]),
+        "tdc_inverse_perm": (None, [i32p, i64, i32p]),
+        "tdc_gather_i32": (None, [i32p, i32p, i64, i32p]),
+        "tdc_phi_from_sa": (None, [i32p, i64, i32p]),
+        "tdc_sparse_isa_build": (None, [i64p, i64, i64, u8p, i64p]),
+        "tdc_lzss_lcp_factorize": (i64, [i32p, i32p, i32p, i64, i64, u32p, u32p, u32p]),
+        "tdc_lzss_stream_parse": (
+            i64,
+            [u8p, i64, i64, i64, i64, i64, i64, i64, i32, u64p, i64p, u8p, i32,
+             u8p, u32p, u32p, u32p, i64p],
+        ),
+        "tdc_lzss_apply_factors": (None, [u8p, u32p, u32p, u32p, i64]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)

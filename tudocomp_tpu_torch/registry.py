@@ -4,10 +4,11 @@
 of include/tudocomp/Registry.hpp:11-238), trimmed to registration, lookup
 and selection: it maps (type, name) to algorithm classes and selects and
 instantiates them from id strings. `TorchRegistry` holds the algorithms of
-the ported slices (`blockwise`, `lz78`, `lzw`, `encode`, the Huffman and
-universal coders `huff`, `ascii`, `bit`, `gamma`, `delta`, `ternary`,
-`vbyte`, the `lz78trie` axis and the hash axes of its hash tries) and is
-bound to the one torch.device its device stages run on.
+the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `encode`, the
+Huffman and universal coders `huff`, `ascii`, `bit`, `gamma`, `delta`,
+`ternary`, `vbyte`, the `lz78trie` axis and the hash axes of its hash
+tries, the `textds` axis and its providers) and is bound to the one
+torch.device its device stages run on.
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ from .coders.universal import (
 from .compressors import hash_axes, lz78_tries
 from .compressors.blockwise import BlockwiseCompressor
 from .compressors.lz78 import LZ78Compressor
+from .compressors.lzss_lcp import LZSSLCPCompressor
 from .compressors.lzw import LZWCompressor
 from .compressors.simple import LiteralEncoder
 from .device import resolve
+from .ds import textds_algo
 from .dsl import evaluate, parse
 from .meta import Algorithm, AlgorithmValue, Env
 
@@ -83,6 +86,7 @@ class TorchRegistry(Registry):
             BlockwiseCompressor,
             LZ78Compressor,
             LZWCompressor,
+            LZSSLCPCompressor,
             LiteralEncoder,
             HuffmanCoder,
             ASCIICoder,
@@ -95,3 +99,4 @@ class TorchRegistry(Registry):
             self.register(cls)
         lz78_tries.register(self)
         hash_axes.register(self)
+        textds_algo.register(self)
