@@ -52,11 +52,18 @@ line each:
                     with the device parse and with the host parse;
   9. probes         every kernel of csrc/probes.cu against its plain version
                     on the card at the probe scripts' own shapes, exactly;
-                    then `python -m tudocomp_tpu_torch.probes` as a user runs
-                    it, every probe kernel launched; their times, bounds and,
-                    for the gather and the two rolls, the time of the one
-                    PyTorch call for the same function (torch.gather,
-                    torch.roll);
+                    the gather also on random indices over whole rows and
+                    on probes.gather_cases's edge shapes, with the arm each
+                    tile took (staged or direct) held to probes.gather_arms,
+                    a bad index raising IndexError and the next call right;
+                    a launch on a side stream; then `python -m
+                    tudocomp_tpu_torch.probes` as a user runs it, every
+                    probe kernel launched; their times (wrapper ms by CUDA
+                    events, device ms by torch.profiler), bounds (the
+                    gather's sector floor beside its bound) and, for the
+                    gather and the two rolls, the one PyTorch call for the
+                    same function (torch.gather, torch.roll) timed in
+                    turns; the launch path's host cost;
  10. suffix stack   16 MiB of the English stand-in and 16 MiB of a seeded
                     4-letter DNA-like text: the suffix array and its inverse
                     built on the card equal the C++ SA-IS and its inverse;
@@ -75,8 +82,8 @@ line each:
                     SA); the stages of the 16 MiB encode on the card and on
                     the host.
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels (each with its launches on its path, its bound and its plain
-version's time), and the final line {"ok": true, "device": {...}}. Any
+kernels (each with its launches on its path, its wrapper and device times,
+its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
 failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
@@ -177,6 +184,30 @@ KERNEL_INFO = {
             "probe8_d": "etc/probe8.py:126",
         }.items()
     },
+}
+# counter name -> the __global__ functions its launcher runs, as the profiler names them
+DEVICE_FNS = {
+    "pack_blocks": ("tile_sums_kernel<false>", "scatter_kernel<false>"),
+    "pack_bytes_blocks": ("tile_sums_kernel<true>", "scatter_kernel<true>"),
+    "huffman_tables": ("huffman_tables_kernel",),
+    "moffat_phase12": ("moffat_phase12_kernel",),
+    "decode_payloads": ("decode_kernel",),
+    "lz78_parse": ("lz78_kernel",),
+    "lzw_parse": ("lzw_kernel",),
+    "plcp_segments": ("plcp_level_kernel",),
+    "probe3_gather": ("gather_kernel",),
+    "probe6_roll_lane": ("p6_roll_lane_kernel",),
+    "probe6_roll_sublane": ("p6_roll_sublane_kernel",),
+    "probe6_extract": ("p6_extract_kernel",),
+    "probe6_bid": ("p6_bid_kernel",),
+    "probe6_dot3": ("p6_dot3_kernel",),
+    "probe6_rmw": ("p6_rmw_kernel",),
+    "probe6_shift": ("p6_shift_kernel",),
+    "probe7_pack": ("p7_pack_kernel",),
+    "probe8_a": ("p8_a_kernel",),
+    "probe8_b": ("p8_b_kernel",),
+    "probe8_c": ("p8_c_kernel",),
+    "probe8_d": ("p8_d_kernel",),
 }
 
 
@@ -383,6 +414,66 @@ def cuda_ms(fn, budget_ms: float = 500.0, max_iters: int = 50) -> float:
     return timed(n) if n >= 2 else t
 
 
+def device_time(fn, name, iters: int = 10) -> dict:
+    """Device ms a call of fn() spends in the kernels of counter `name`
+    (DEVICE_FNS; name None: in every kernel it runs), from torch.profiler's
+    key_averages() over `iters` warm calls (None: the profiler saw no
+    device time, not measured), and the kernel events it counted. A long
+    run of profiler sessions in one process can drop events: with fewer
+    events than calls the ms is the mean of the events seen, a call's time
+    for a launcher of one kernel a call; for one of several (A, B, H) a
+    short count leaves the ms low."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = DEVICE_FNS[name] if name else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, events = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        if fns is None or any(f"::{f}(" in e.key or e.key.startswith(f"{f}(") for f in fns):
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            events += e.count
+    if total <= 0:
+        return {"device_ms": None, "device_events": events}
+    return {"device_ms": total / min(events, iters) / 1e3, "device_events": events}
+
+
+def in_turns(kernel, library, **kw) -> dict:
+    """CUDA-event ms of kernel() and library() timed in turns (kernel,
+    library, library, kernel), and the library's device ms after."""
+    k1 = cuda_ms(kernel, **kw)
+    l1 = cuda_ms(library, **kw)
+    l2 = cuda_ms(library, **kw)
+    k2 = cuda_ms(kernel, **kw)
+    lib = device_time(library, None)
+    return {"ms_turns": [k1, k2], "library_ms_turns": [l1, l2], "ms": (k1 + k2) / 2,
+            "library_ms": (l1 + l2) / 2, "library_device_ms": lib["device_ms"],
+            "library_device_events": lib["device_events"]}
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host microseconds a call of fn() takes to return (launches queued,
+    not waited for), over n calls after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def cuda_once(fn):
     """fn()'s result and the CUDA-event ms of that one run."""
     import torch
@@ -555,6 +646,7 @@ def main() -> int:
     for name, (args, kernel, plain) in cases.items():
         timing[name] = {
             "ms": cuda_ms(lambda: kernel(*args)),
+            **device_time(lambda: kernel(*args), name),
             "plain_ms": cuda_ms(lambda: plain(*args), budget_ms=2000.0, max_iters=10),
             **bound(name, args, kernel(*args)),
         }
@@ -702,6 +794,7 @@ def shared_phase(data: bytes, hists69, dev, gpu):
         raise AssertionError(f"kernel G differs from its plain version: {report}")
     args = ht._sort_hist(cases["summed [1, 256]"])[:2]
     line = {"ms": cuda_ms(lambda: tk.moffat_phase12(*args)),
+            **device_time(lambda: tk.moffat_phase12(*args), "moffat_phase12"),
             "plain_ms": cuda_ms(lambda: tk.moffat_phase12_plain(*args), budget_ms=2000.0, max_iters=10),
             **bound("moffat_phase12", args, tk.moffat_phase12(*args))}
 
@@ -829,7 +922,8 @@ def lz78_kernel_phase(text, dev, gpu):
                         "blocks_ending_mid_phrase": mid}
         errs[kname] = max(errs[kname], err)
         if name == line_case[kname]:
-            timing[kname] = {"ms": ms, "plain_ms": plain_ms, **bound(kname, (b, nv), got)}
+            timing[kname] = {"ms": ms, **device_time(lambda: kernel(b, nv), kname, iters=3),
+                             "plain_ms": plain_ms, **bound(kname, (b, nv), got)}
         del b, nv, got, want
     torch.cuda.empty_cache()
     emit({"phase": "lz78 kernels", "max_abs_err": errs, "tolerance": 0, "cases": report, "card": gpu})
@@ -989,10 +1083,40 @@ def lz78_timing_phase(text, dev, gpu) -> None:
           "gate": gate, "card": gpu})
 
 
+def gather_floors(S, idx) -> dict:
+    """The gather's bound (bound()) and its sector floor: idx read, out
+    written, and every 32-byte sector of S that idx touches read once."""
+    import torch
+
+    out = torch.empty_like(idx)
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * S.shape[1]
+    sectors = torch.unique((idx.to(torch.int64) + rows + S.data_ptr() // 4 % 8) // 8).numel()
+    floor = (nbytes(idx) + nbytes(out) + 32 * sectors) / PEAK_BYTES_PER_S * 1e3
+    return {**bound("probe3_gather", (S, idx), out), "sector_floor_ms": floor}
+
+
+def gather_body_ms(S, idx) -> float:
+    """CUDA-event ms of the gather kernel alone: back-to-back launches with
+    no wait between them (the wrapper waits after each)."""
+    from tudocomp_tpu_torch import kernels
+
+    out = idx.new_empty(idx.shape)
+    flag = kernels._flag(kernels._device())[1]
+    return cuda_ms(lambda: kernels.launch("tdc_probe3_gather", S, idx, out, S.shape[0], S.shape[1],
+                                          idx.shape[1], None, flag), max_iters=200)
+
+
 def probes_phase(dev, gpu):
     """Phase 9: every kernel of csrc/probes.cu against its plain version at
-    the probe scripts' own shapes, the entry point driven as a user drives
-    it, and the times. Returns (errs, timing, launches) by kernel name."""
+    the probe scripts' own shapes; the gather also on unsorted indices over
+    whole rows and on the edge shapes of probes.gather_cases, each case
+    with the arm its tiles took, a bad index raising and the next call
+    right; the entry point driven as a user drives it; the times: every
+    kernel's wrapper ms (CUDA events) and device ms (torch.profiler), the
+    gather and the two rolls in turns with torch.gather / torch.roll; and
+    the launch path's host cost. Returns (errs, timing, launches) by
+    kernel name."""
+    import numpy as np
     import torch
 
     from tudocomp_tpu_torch import kernels, probes
@@ -1003,7 +1127,11 @@ def probes_phase(dev, gpu):
     idx = probes.hist2(nb3, n_words).clamp(0, S.shape[1] - 1)
     idx64 = idx.to(torch.int64)
     del vals3, nb3
+    rng = np.random.default_rng(9)
+    rand_idx = torch.from_numpy(rng.integers(0, S.shape[1], tuple(idx.shape)).astype(np.int32)).to(dev)
+    rand_idx64 = rand_idx.to(torch.int64)
     x8 = torch.arange(probes.TILE, dtype=torch.int32, device=dev).reshape(probes.ROWS, probes.LANES)
+    xs = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (probes.ROWS, probes.LANES)).astype(np.int32)).to(dev)
     i300 = torch.tensor([[300]], dtype=torch.int32, device=dev)
     vals7, nbits7 = probes.probe7_inputs(dev)
     v8 = torch.ones((probes.P8_B, probes.P8_T, probes.ROWS, probes.LANES), dtype=torch.int32, device=dev)
@@ -1013,8 +1141,9 @@ def probes_phase(dev, gpu):
 
     # name -> [(args, kernel, plain)], the first case being the one that is timed
     cases = {
-        "probe3_gather": [((S, idx), probes.gather, probes.gather_plain)],
-        "probe6_roll_lane": [((x8,), probes.roll_lane, probes.roll_lane_plain)],
+        "probe3_gather": [((S, idx), probes.gather, probes.gather_plain),
+                          ((S, rand_idx), probes.gather, probes.gather_plain)],
+        "probe6_roll_lane": [((x,), probes.roll_lane, probes.roll_lane_plain) for x in (x8, xs)],
         "probe6_roll_sublane": [((x8,), probes.roll_sublane, probes.roll_sublane_plain)],
         "probe6_extract": [((x8,), probes.scalar_extract, probes.scalar_extract_plain)],
         "probe6_bid": [((x8,), probes.broadcast_last_lane, probes.broadcast_last_lane_plain)],
@@ -1047,6 +1176,41 @@ def probes_phase(dev, gpu):
     if max_abs_err((words[:, 0], bits[:, 0, 0]), bc.pack_blocks(vals7, nbits7, probes.P7_NWP)):
         raise AssertionError("probe7 level 5 differs from kernel A")
 
+    # the gather's arms: the probe's sorted indices stage, random ones go direct
+    arms_by_case = {}
+    for cname, (gS, gi) in {"probe shape, sorted": (S, idx), "probe shape, random": (S, rand_idx),
+                            **probes.gather_cases(dev)}.items():
+        arms = torch.zeros(3, dtype=torch.int32, device=dev)
+        e = max_abs_err(probes.gather(gS, gi, arms), probes.gather_plain(gS, gi))
+        arms_by_case[cname] = {"shape": [list(gS.shape), list(gi.shape)], "staged_direct_out": arms.tolist(),
+                               "rule": probes.gather_arms(gS, gi).tolist(), "max_abs_err": e}
+        errs["probe3_gather"] = max(errs["probe3_gather"], e)
+    if any(c["max_abs_err"] or c["staged_direct_out"] != c["rule"] for c in arms_by_case.values()):
+        raise AssertionError(f"gather cases: {arms_by_case}")
+    if arms_by_case["probe shape, sorted"]["staged_direct_out"][0] == 0 or \
+            arms_by_case["probe shape, random"]["staged_direct_out"][1] == 0:
+        raise AssertionError(f"the probe shape did not take both arms: {arms_by_case}")
+    bad = idx.clone()
+    bad[5, 1000] = S.shape[1]
+    try:
+        probes.gather(S, bad)
+        raise AssertionError("an index past ns did not raise")
+    except IndexError:
+        pass
+    if max_abs_err(probes.gather(S, idx), probes.gather_plain(S, idx)):
+        raise AssertionError("the gather after a bad index differs from its plain version")
+
+    # the launch path: the stream handle follows torch.cuda.stream(...)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        if kernels._stream() != side.cuda_stream:
+            raise AssertionError("kernels._stream() is not the side stream")
+        on_side = probes.roll_lane(xs)
+    side.synchronize()
+    if kernels._stream() != torch.cuda.current_stream().cuda_stream or max_abs_err(on_side, probes.roll_lane_plain(xs)):
+        raise AssertionError("a launch on a side stream went wrong")
+
     # the entry point, as `python -m tudocomp_tpu_torch.probes` runs it
     kernels.reset_counts()
     if probes.main([]) != 0:
@@ -1061,17 +1225,64 @@ def probes_phase(dev, gpu):
     for name, variants in cases.items():
         args, kernel, plain = variants[0]
         timing[name] = {
-            "ms": cuda_ms(lambda: kernel(*args)),
+            "ms": cuda_ms(lambda: kernel(*args), max_iters=200),
+            **device_time(lambda: kernel(*args), name, iters=20),
             "plain_ms": cuda_ms(lambda: plain(*args), budget_ms=1000.0, max_iters=10),
             **bound(name, args, tensors(kernel(*args))),
         }
-    timing["probe3_gather"]["library_ms"] = cuda_ms(lambda: torch.gather(S, 1, idx64))
-    timing["probe6_roll_lane"]["library_ms"] = cuda_ms(lambda: torch.roll(x8, 1, 1))
-    timing["probe6_roll_sublane"]["library_ms"] = cuda_ms(lambda: torch.roll(x8, 1, 0))
+    timing["probe3_gather"].update(gather_floors(S, idx))
+    timing["probe3_gather"]["body_ms"] = gather_body_ms(S, idx)
+    library = {
+        "probe3_gather": (lambda: probes.gather(S, idx), lambda: torch.gather(S, 1, idx64)),
+        "probe6_roll_lane": (lambda: probes.roll_lane(x8), lambda: torch.roll(x8, 1, 1)),
+        "probe6_roll_sublane": (lambda: probes.roll_sublane(x8), lambda: torch.roll(x8, 1, 0)),
+    }
+    for name, (kernel, lib) in library.items():
+        timing[name].update(in_turns(kernel, lib, max_iters=200))
     timing["probe3_gather"]["library_with_index_cast_ms"] = cuda_ms(lambda: torch.gather(S, 1, idx.to(torch.int64)))
+    direct = {**in_turns(lambda: probes.gather(S, rand_idx), lambda: torch.gather(S, 1, rand_idx64), max_iters=200),
+              **device_time(lambda: probes.gather(S, rand_idx), "probe3_gather", iters=20),
+              **gather_floors(S, rand_idx), "body_ms": gather_body_ms(S, rand_idx)}
+    # the probe's sorted indices through the direct arm alone: S one word past
+    # a 16-byte bound stages no tile; timed in turns with the staged arm
+    S_off = torch.empty(S.numel() + 1, dtype=S.dtype, device=dev)[1:].view(S.shape)
+    S_off.copy_(S)
+    arms = torch.zeros(3, dtype=torch.int32, device=dev)
+    if max_abs_err(probes.gather(S_off, idx, arms), probes.gather_plain(S, idx)) or arms.tolist()[0]:
+        raise AssertionError(f"the sorted gather off a 16-byte bound: arms {arms.tolist()}")
+    sorted_arms = {
+        "direct_on_sorted": {"staged_direct_out": arms.tolist(),
+                             **device_time(lambda: probes.gather(S_off, idx), "probe3_gather", iters=20)},
+        "staged_on_sorted": device_time(lambda: probes.gather(S, idx), "probe3_gather", iters=20),
+        "body_ms_in_turns": {
+            "staged": [gather_body_ms(S, idx), None, None, gather_body_ms(S, idx)],
+            "direct": [None, gather_body_ms(S_off, idx), gather_body_ms(S_off, idx), None],
+        },
+    }
+    del S_off
     p7_levels = {f"level {lv}": cuda_ms(lambda: probes.pack_levels(vals7, nbits7, probes.P7_NWP, lv))
                  for lv in (1, 2, 3, 4, 5)}
+    out8 = torch.empty_like(x8)
+    launch_path = {
+        "stream_handle_us": {
+            "torch.cuda.current_stream().cuda_stream": host_us(lambda: torch.cuda.current_stream().cuda_stream, 20000),
+            "torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()) (kernels._stream)":
+                host_us(kernels._stream, 20000),
+            "torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())":
+                host_us(lambda: torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()), 20000),
+        },
+        "host_us_a_call": {
+            "kernels.launch('tdc_probe6_roll_lane', x, out)": host_us(
+                lambda: kernels.launch("tdc_probe6_roll_lane", x8, out8)),
+            "probes.roll_lane(x)": host_us(lambda: probes.roll_lane(x8)),
+            "torch.roll(x, 1, 1)": host_us(lambda: torch.roll(x8, 1, 1)),
+            "probes.gather(S, idx) (waits for the card)": host_us(lambda: probes.gather(S, idx), 200),
+            "torch.gather(S, 1, idx64)": host_us(lambda: torch.gather(S, 1, idx64), 200),
+        },
+    }
     emit({"phase": "probes", "max_abs_err": errs, "tolerance": 0, "launches": launches, "kernels": timing,
+          "gather_cases": arms_by_case, "gather_direct_probe_shape": direct,
+          "gather_sorted_by_arm": sorted_arms, "launch_path": launch_path,
           "probe7_levels_ms": p7_levels, "gather_shape": [list(S.shape), list(idx.shape)], "card": gpu})
     return errs, timing, launches
 
@@ -1163,8 +1374,9 @@ def suffix_phase(english, dev, gpu):
         if e:
             raise AssertionError(f"{name}: kernel H differs from its plain version by {e}")
         err_h = max(err_h, e)
-        line = {"ms": cuda_ms(lambda: plcp_torch.plcp_device(t, sa_d), max_iters=5), "plain_ms": plain_ms,
-                **bound("plcp_segments", (t, sa_d), plcp_k)}
+        line = {"ms": cuda_ms(lambda: plcp_torch.plcp_device(t, sa_d), max_iters=5),
+                **device_time(lambda: plcp_torch.plcp_device(t, sa_d), "plcp_segments", iters=3),
+                "plain_ms": plain_ms, **bound("plcp_segments", (t, sa_d), plcp_k)}
         line_h = line_h or line
         dev_st = got[4]
         report[name] = {

@@ -102,6 +102,71 @@ def test_probe3_gather():
         probes.gather(_t(S.astype(np.int32)), _t(idx + P3_NT))
 
 
+# the arm each case's tiles take (staged, direct, out of range), by gather_kernel's rule
+GATHER_ARMS = {
+    "sorted": [15, 0, 0],
+    "random": [0, 10, 0],
+    "one entry": [1, 0, 0],
+    "odd rows": [35, 0, 0],
+    "ends": [9, 0, 0],
+    "ns below a tile": [12, 0, 0],
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_ARMS))
+def test_probe3_gather_edge_shapes(case):
+    S, idx = probes.gather_cases("cpu")[case]
+    arms = torch.zeros(3, dtype=torch.int32)
+    got = probes.gather(S, idx, arms)
+    np.testing.assert_array_equal(got.numpy(), np.take_along_axis(S.numpy(), idx.numpy().astype(np.int64), axis=1))
+    assert arms.tolist() == GATHER_ARMS[case]
+
+
+@pytest.mark.parametrize("shift", [-1, "ns"])
+def test_probe3_gather_out_of_range_raises(shift):
+    S, idx = probes.gather_cases("cpu")["odd rows"]
+    idx = idx.clone()
+    idx[3, 4000] = -1 if shift == -1 else S.shape[1]
+    assert probes.gather_arms(S, idx).tolist() == [34, 0, 1]
+    with pytest.raises(IndexError):
+        probes.gather(S, idx)
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GATHER_ARMS))
+def test_probe3_gather_kernel_edge_shapes(cuda_dev, case):
+    S, idx = probes.gather_cases(cuda_dev)[case]
+    arms = torch.zeros(3, dtype=torch.int32, device=cuda_dev)
+    got = probes.gather(S, idx, arms)
+    assert torch.equal(got.cpu(), probes.gather_plain(S, idx).cpu())
+    assert arms.tolist() == GATHER_ARMS[case]
+
+
+@pytest.mark.cuda
+def test_probe3_gather_kernel_raises_then_recovers(cuda_dev):
+    S, idx = probes.gather_cases(cuda_dev)["odd rows"]
+    bad = idx.clone()
+    bad[3, 4000] = S.shape[1]
+    with pytest.raises(IndexError):
+        probes.gather(S, bad)
+    assert torch.equal(probes.gather(S, idx).cpu(), probes.gather_plain(S, idx).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", ["arange", "signed"])
+def test_probe6_roll_lane_kernel(cuda_dev, tile):
+    x = _t(_tiles()[tile]).to(cuda_dev)
+    assert torch.equal(probes.roll_lane(x).cpu(), probes.roll_lane_plain(x).cpu())
+    assert torch.equal(probes.roll_lane(x[:, :].t().contiguous().t()).cpu(), probes.roll_lane_plain(x).cpu())
+
+
 # ---- probe6 ----------------------------------------------------------------------------------
 
 

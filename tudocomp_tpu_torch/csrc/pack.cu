@@ -53,12 +53,12 @@ struct PackArgs {
   int32_t* tile_bits;   // [B, n_tiles] scratch
   uint32_t* words;      // [B, n_words] arena, zeroed or pre-filled
   int32_t* total_bits;  // [B]
-  int32_t* err;         // set to 1 when a width lies outside [0, 32]
+  int32_t* err;         // mapped host word (csrc/launch.cu): 1 when a width lies outside [0, 32]
 };
 
 __device__ __forceinline__ int checked_width(int nb, int32_t* err) {
   if (nb < 0 || nb > 32) {
-    atomicOr(err, 1);
+    *reinterpret_cast<volatile int32_t*>(err) = 1;  // a plain store: every writer stores 1
     return 0;
   }
   return nb;
@@ -249,7 +249,8 @@ int n_tiles_for(int64_t nt) { return (int)((nt + TILE - 1) / TILE); }
 }  // namespace
 
 // Kernel A. values/nbits [B, nt] (u32 / i32), words [B, n_words] zeroed by the
-// caller, tile_bits [B, ceil(nt / 2048)] scratch, total_bits [B], err [1].
+// caller, tile_bits [B, ceil(nt / 2048)] scratch, total_bits [B], err the
+// mapped flag word.
 extern "C" int tdc_pack_blocks(const void* values, const void* nbits, int B, long long nt,
                                int n_words, void* tile_bits, void* words, void* total_bits,
                                void* err, void* stream) {
@@ -269,7 +270,7 @@ extern "C" int tdc_pack_blocks(const void* values, const void* nbits, int B, lon
 // Kernel B. bytes [B, bs] u8, n_valid [B], table_vals/table_bits [B, 256],
 // start_bits [B] header bits, words [B, n_words] pre-filled with the header
 // words by the caller, tile_bits [B, ceil(bs / 2048)] scratch, total_bits [B],
-// err [1].
+// err the mapped flag word.
 extern "C" int tdc_pack_bytes_blocks(const void* bytes, const void* n_valid, const void* table_vals,
                                      const void* table_bits, const void* start_bits, int B,
                                      long long bs, int n_words, void* tile_bits, void* words,

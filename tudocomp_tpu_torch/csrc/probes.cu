@@ -10,7 +10,15 @@
 // Each computes what its Pallas body computes and returns the same outputs,
 // in Hopper's terms. A token tile is 8 rows of 128 lanes, row-major, as in
 // the scripts; here a tile is one CTA of 1024 threads, thread r * 128 + c
-// holding element (r, c).
+// holding element (r, c), except where said otherwise.
+//   - The gather is designed for the card (its note below): a CTA takes
+//     1024 entries of a row, reads idx and writes out in 16-byte vectors,
+//     checks its bounds once from the tile's min and max, and gathers either
+//     from a window of S that one TMA bulk copy brought into shared memory
+//     (indices that stay close, as the probe's sorted ones) or straight from
+//     device memory with all its loads in flight.
+//   - The lane roll is a warp shuffle: one warp a row, a 16-byte vector a
+//     lane, no shared memory and no barrier.
 //   - The roll scans (lane scan, then sublane scan of the row totals) are
 //     one CTA-wide scan: warp shuffles, then the 32 warp totals in shared
 //     memory. The segmented XOR scan per target word runs over a warp.
@@ -21,12 +29,16 @@
 //     its tiles with the carry in a register.
 //   - The dynamic-slice read-modify-write of a 384-word window becomes
 //     XORs at computed offsets (atomicXor where windows may overlap).
-//   - The VMEM gather is an indexed load.
-// Bound on the H100: the gather by the bytes it moves (idx read, out
-// written, S read at most once); every other kernel works on a few KiB and
-// is bound by its launch and a handful of dependent shared-memory steps.
-// Words are u32 bit patterns; the wrappers hand them over in int32 tensors.
+// A kernel that finds a bad input (the gather, rmw, the pack at level 1-5,
+// k_d) stores 1 into `err`, a word of pinned host memory mapped for the card
+// (csrc/launch.cu): a plain store, never an atomic, which the host reads
+// after it has waited for the stream.
+// Bound on the H100: the gather by the bytes it moves; every other kernel
+// works on a few KiB and is bound by its launch and a handful of dependent
+// shared-memory steps. Words are u32 bit patterns; the wrappers hand them
+// over in int32 tensors.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,33 +100,186 @@ __device__ int row_inclusive_scan(int x, int* s_warp) {
 }
 
 // ---- etc/probe3.py: out[b, i] = S[b, idx[b, i]] -----------------------------
+//
+// Replaces gather_kernel of etc/probe3.py, which gathered one row in VMEM.
+// Bound on the H100: bytes. The named words (idx read, out written, each word
+// of S that idx names read once) are 51.5 MB at the probe's shape, 0.0154 ms
+// at 3.35 TB/s; but idx rises ~4.9 words an entry there, so every 32-byte
+// sector of S is touched and DRAM must move S + idx + out, 105 MB, 0.031 ms
+// (the sector floor). One CTA takes G_TILE entries of one row:
+//   - idx is read and out written in 16-byte vectors where both addresses
+//     share their alignment (a scalar head and tail around them; rows of an
+//     odd length start misaligned), index arithmetic 32-bit inside the row;
+//   - the CTA reduces its tile's min and max once. A tile with an index
+//     outside [0, ns) stores the flag word once and writes zeros (the
+//     wrapper raises): no atomic per element;
+//   - staged arm: when max - min + 1 <= G_STAGE_WORDS, one thread copies
+//     S[b, min .. max] (widened to 16-byte bounds, clamped to the allocation)
+//     into shared memory with one TMA bulk copy (cp.async.bulk, completion on
+//     an mbarrier), and the tile gathers from shared memory. S then moves
+//     once, in bulk, at the sector floor; sorted indices take this arm;
+//   - direct arm: otherwise every thread issues the loads of all its entries
+//     (read-only path) before it stores, so the idx -> S dependency does not
+//     serialise them.
+// The window is small on purpose: 24 KiB a CTA lets six CTAs (48 warps)
+// share an SM, and the direct arm needs those warps' loads in flight. An S
+// that does not start on a 16-byte bound takes the direct arm everywhere
+// (chip_smoke.py times sorted indices that way against the staged arm).
 
-__global__ void gather_kernel(const uint32_t* __restrict__ S, const int32_t* __restrict__ idx,
-                              uint32_t* __restrict__ out, int64_t ns, int64_t ni, int32_t* err) {
-  const int64_t b = blockIdx.y;
-  const uint32_t* s = S + b * ns;
-  const int32_t* ix = idx + b * ni;
-  uint32_t* o = out + b * ni;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < ni;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t j = ix[i];
-    if (j < 0 || j >= ns) {
-      atomicOr(err, 1);
-      o[i] = 0;
-    } else {
-      o[i] = s[j];
+constexpr int G_THREADS = 256;
+constexpr int G_VECS = 1;                            // 16-byte vectors of idx a thread
+constexpr int G_TILE = G_THREADS * G_VECS * 4;       // entries a CTA: 1024
+constexpr int G_STAGE_WORDS = 6144;                  // the staged arm's largest span
+constexpr int G_SMEM_BYTES = (G_STAGE_WORDS + 8) * 4;  // + 16-byte widening at each end
+static_assert(G_SMEM_BYTES + 128 <= 48 * 1024, "past 48 KiB the launch needs cudaFuncSetAttribute");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__global__ void __launch_bounds__(G_THREADS, 6)
+gather_kernel(const uint32_t* __restrict__ S, const int32_t* __restrict__ idx,
+              uint32_t* __restrict__ out, int B, long long ns, long long ni, int stage_ok,
+              int32_t* arms, int32_t* err) {
+  extern __shared__ __align__(16) uint32_t win[];
+  __shared__ __align__(8) unsigned long long bar;
+  __shared__ int s_min[G_THREADS / 32], s_max[G_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long total = (long long)B * ns;
+  const long long i0 = (long long)blockIdx.x * G_TILE;
+  const int n = (int)min((long long)G_TILE, ni - i0);
+  unsigned parity = 0;
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    const int32_t* ix = idx + b * ni + i0;
+    uint32_t* o = out + b * ni + i0;
+    const uint32_t* s = S + b * ns;
+    // entries [0, head) and [head + 4 * nv, n) are scalars, the rest vectors
+    int head = (int)(((16 - ((uintptr_t)ix & 15)) & 15) >> 2);
+    if (head > n || (((uintptr_t)ix ^ (uintptr_t)o) & 15)) head = n;
+    const int nv = (n - head) >> 2;
+    const int n_edge = n - 4 * nv;
+    const int4* iv4 = reinterpret_cast<const int4*>(ix + head);
+    uint4* o4 = reinterpret_cast<uint4*>(o + head);
+    auto edge = [&](int e) { return e < head ? e : e + 4 * nv; };
+
+    int4 v[G_VECS];
+    int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+    for (int k = 0; k < G_VECS; ++k) {
+      const int q = tid + k * G_THREADS;
+      if (q < nv) {
+        v[k] = __ldg(iv4 + q);
+        mn = min(mn, min(min(v[k].x, v[k].y), min(v[k].z, v[k].w)));
+        mx = max(mx, max(max(v[k].x, v[k].y), max(v[k].z, v[k].w)));
+      }
     }
+    for (int e = tid; e < n_edge; e += G_THREADS) {
+      const int j = __ldg(ix + edge(e));
+      mn = min(mn, j);
+      mx = max(mx, j);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      mn = min(mn, __shfl_xor_sync(FULL, mn, d));
+      mx = max(mx, __shfl_xor_sync(FULL, mx, d));
+    }
+    if (lane == 0) {
+      s_min[warp] = mn;
+      s_max[warp] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < G_THREADS / 32; ++w) {
+      mn = min(mn, s_min[w]);
+      mx = max(mx, s_max[w]);
+    }
+
+    if (mn < 0 || (long long)mx >= ns) {
+      if (tid == 0) {
+        *reinterpret_cast<volatile int32_t*>(err) = 1;
+        if (arms) atomicAdd(arms + 2, 1);
+      }
+#pragma unroll
+      for (int k = 0; k < G_VECS; ++k)
+        if (tid + k * G_THREADS < nv) o4[tid + k * G_THREADS] = make_uint4(0, 0, 0, 0);
+      for (int e = tid; e < n_edge; e += G_THREADS) o[edge(e)] = 0;
+    } else {
+      const bool staged = stage_ok && mx - mn < G_STAGE_WORDS;
+      // the window: words [lo, e_end) of the allocation, win[0] = S[lo]
+      const long long a = b * ns + mn, e_end = b * ns + mx + 1;
+      const long long lo = a & ~3LL;
+      const long long hi = min((e_end + 3) & ~3LL, total & ~3LL);  // bulk copy end
+      const int shift = (int)(b * ns - lo);  // win index of s[j] is j + shift
+      if (staged) {
+        if (tid == 0) {
+          const uint32_t bytes = (uint32_t)(hi - lo) * 4u;
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          if (bytes) {
+            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                         ::"r"(smem_addr(&bar)), "r"(bytes) : "memory");
+            asm volatile(
+                "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                ::"r"(smem_addr(win)), "l"(S + lo), "r"(bytes), "r"(smem_addr(&bar)) : "memory");
+          } else {
+            asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(&bar)) : "memory");
+          }
+          if (arms) atomicAdd(arms + 0, 1);
+        }
+        // the allocation's last words, past its last 16-byte bound
+        for (long long w = hi + tid; w < e_end; w += G_THREADS) win[w - lo] = S[w];
+        __syncthreads();
+        uint32_t done = 0;
+        while (!done) {
+          asm volatile(
+              "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+              " selp.u32 %0, 1, 0, p;\n}\n"
+              : "=r"(done) : "r"(smem_addr(&bar)), "r"(parity) : "memory");
+        }
+        parity ^= 1;
+      } else if (tid == 0 && arms) {
+        atomicAdd(arms + 1, 1);
+      }
+      uint4 r[G_VECS];
+#pragma unroll
+      for (int k = 0; k < G_VECS; ++k) {
+        if (tid + k * G_THREADS < nv) {
+          if (staged)
+            r[k] = make_uint4(win[v[k].x + shift], win[v[k].y + shift], win[v[k].z + shift],
+                              win[v[k].w + shift]);
+          else
+            r[k] = make_uint4(__ldg(s + v[k].x), __ldg(s + v[k].y), __ldg(s + v[k].z),
+                              __ldg(s + v[k].w));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < G_VECS; ++k)
+        if (tid + k * G_THREADS < nv) o4[tid + k * G_THREADS] = r[k];
+      for (int e = tid; e < n_edge; e += G_THREADS) {
+        const int j = __ldg(ix + edge(e));
+        o[edge(e)] = staged ? win[j + shift] : __ldg(s + j);
+      }
+    }
+    __syncthreads();  // win, s_min, s_max are reused by the next row
   }
 }
 
 // ---- etc/probe6.py: seven primitives on one [8, 128] int32 tile -------------
 
-__global__ void __launch_bounds__(TILE) p6_roll_lane_kernel(const int32_t* x, int32_t* o) {
-  __shared__ int32_t t[TILE];
-  const int tid = threadIdx.x, r = tid >> 7, c = tid & 127;
-  t[tid] = x[tid];
-  __syncthreads();
-  o[tid] = t[r * LANES + ((c + LANES - 1) & (LANES - 1))];
+// pltpu.roll(x, 1, axis=1): the TPU's lane rotation is a warp shuffle. One
+// warp a row (8 warps); lane l holds elements 4l .. 4l + 3 of its row in one
+// 16-byte vector, takes element 4l - 1 from lane l - 1 (mod 32) and shifts
+// it in. No shared memory, no barrier.
+__global__ void __launch_bounds__(ROWS * 32) p6_roll_lane_kernel(const int4* __restrict__ x,
+                                                                 int4* __restrict__ o) {
+  const int lane = threadIdx.x & 31;
+  const int4 v = x[threadIdx.x];
+  const int prev = __shfl_sync(FULL, v.w, (lane + 31) & 31);
+  o[threadIdx.x] = make_int4(prev, v.x, v.y, v.z);
 }
 
 __global__ void __launch_bounds__(TILE) p6_roll_sublane_kernel(const int32_t* x, int32_t* o) {
@@ -164,7 +329,7 @@ __global__ void __launch_bounds__(TILE) p6_rmw_kernel(const int32_t* i, uint32_t
   __syncthreads();
   const int a = (i[0] >> 7) * 128;
   if (a < 0 || a + WIN > n) {
-    if (tid == 0) atomicOr(err, 1);
+    if (tid == 0) *reinterpret_cast<volatile int32_t*>(err) = 1;
     return;
   }
   for (int j = tid; j < WIN; j += TILE) o[a + j] ^= 7u;
@@ -212,7 +377,7 @@ p7_pack_kernel(const uint32_t* __restrict__ vals, const int32_t* __restrict__ nb
       nb = nbits[b * nt + i];
       v = vals[b * nt + i];
       if (nb < 0 || nb > 32) {
-        atomicOr(err, 1);
+        *reinterpret_cast<volatile int32_t*>(err) = 1;
         nb = 0;
       }
     }
@@ -361,7 +526,7 @@ p8_d_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_o
     const int base = floor_mod(v[(b * T + t) * TILE + g * LANES] * 3, 8);
     const int a = (base >> 7) * 128;
     if (a + WIN > n_wp) {
-      if (c == 0) atomicOr(err, 1);
+      if (c == 0) *reinterpret_cast<volatile int32_t*>(err) = 1;
       continue;
     }
     for (int j = c; j < WIN; j += LANES) atomicXor(&words[b * n_wp + a + j], (uint32_t)(g + 1));
@@ -378,23 +543,26 @@ inline int last_error() { return (int)cudaGetLastError(); }
 #define I32W(p) static_cast<int32_t*>(p)
 #define U32W(p) static_cast<uint32_t*>(p)
 
-// S [B, ns] u32, idx [B, ni] i32 -> out [B, ni] u32; err [1] is set when an
-// index lies outside [0, ns).
+// S [B, ns] u32, idx [B, ni] i32 -> out [B, ni] u32. err: the mapped flag
+// word, set when an index lies outside [0, ns). arms: null, or three int32
+// counts on the device that each tile adds to (staged, direct, out of range).
 extern "C" int tdc_probe3_gather(const void* S, const void* idx, void* out, int B, long long ns,
-                                 long long ni, void* err, void* stream) {
-  const int threads = 256;
-  long long gx = (ni + threads * 4 - 1) / (threads * 4);
-  if (gx < 1) gx = 1;
-  if (gx > 65535) gx = 65535;
-  dim3 grid((unsigned)gx, (unsigned)B);
-  gather_kernel<<<grid, threads, 0, STREAM>>>(static_cast<const uint32_t*>(S), I32(idx),
-                                              U32W(out), ns, ni, I32W(err));
+                                 long long ni, void* arms, void* err, void* stream) {
+  if (ni <= 0 || B <= 0) return 0;
+  const long long tiles = (ni + G_TILE - 1) / G_TILE;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)(B < 65535 ? B : 65535));
+  const int stage_ok = ((uintptr_t)S & 15) == 0;  // the bulk copy needs 16-byte bounds
+  gather_kernel<<<grid, G_THREADS, G_SMEM_BYTES, STREAM>>>(static_cast<const uint32_t*>(S), I32(idx),
+                                                           U32W(out), B, ns, ni, stage_ok,
+                                                           I32W(arms), I32W(err));
   return last_error();
 }
 
-// x, o: one [8, 128] int32 tile each.
+// x, o: one [8, 128] int32 tile each (roll_lane: 16-byte aligned).
 extern "C" int tdc_probe6_roll_lane(const void* x, void* o, void* stream) {
-  p6_roll_lane_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
+  if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
+  p6_roll_lane_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x), static_cast<int4*>(o));
   return last_error();
 }
 extern "C" int tdc_probe6_roll_sublane(const void* x, void* o, void* stream) {
@@ -413,7 +581,7 @@ extern "C" int tdc_probe6_dot3(const void* x, void* o, void* stream) {
   p6_dot3_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
   return last_error();
 }
-// i [1] int32 on the device, o [n] u32, err [1].
+// i [1] int32 on the device, o [n] u32, err the mapped flag word.
 extern "C" int tdc_probe6_rmw(const void* i, void* o, int n, void* err, void* stream) {
   p6_rmw_kernel<<<1, TILE, 0, STREAM>>>(I32(i), U32W(o), n, I32W(err));
   return last_error();
@@ -423,7 +591,7 @@ extern "C" int tdc_probe6_shift(const void* x, void* o, void* stream) {
   return last_error();
 }
 
-// vals, nbits [B, nt]; words [B, n_wp]; bits [B]; mid may be null; err [1].
+// vals, nbits [B, nt]; words [B, n_wp]; bits [B]; mid may be null; err the mapped flag word.
 extern "C" int tdc_probe7_pack(const void* vals, const void* nbits, int B, long long nt, int n_wp,
                                void* words, void* bits, int level, void* mid, void* err,
                                void* stream) {
@@ -432,7 +600,7 @@ extern "C" int tdc_probe7_pack(const void* vals, const void* nbits, int B, long 
   return last_error();
 }
 
-// v [B, T, 8, 128] int32; words [B, n_wp]; carry [B]; err [1] (d only).
+// v [B, T, 8, 128] int32; words [B, n_wp]; carry [B]; err the mapped flag word (d only).
 extern "C" int tdc_probe8_a(const void* v, int B, int T, int n_wp, void* words, void* carry,
                             void* stream) {
   p8_a_kernel<<<B, TILE, 0, STREAM>>>(I32(v), T, n_wp, U32W(words), I32W(carry));

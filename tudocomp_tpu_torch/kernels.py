@@ -10,7 +10,15 @@ builds, and code on the CPU never reaches this module's build.
 
 Every launch goes through `launch`, which passes PyTorch's current stream,
 raises when the launcher returns a CUDA error, and counts the launch under
-the kernel's name (`counts`, `reset_counts`).
+the kernel's name (`counts`, `reset_counts`). The library is loaded once,
+under a lock; after that a launch takes no lock: it looks its ctypes
+function up in a dict filled at load, reads the current stream's raw handle
+(no `torch.cuda.Stream` object is built), and calls. A kernel that reports
+a bad input writes a flag word in pinned host memory mapped for the card
+(`launch_flagged`): the host zeroes the word, launches, waits for the
+current stream once and reads the word, with no device allocation, memset
+or copy back. The word is one per device, so a per-device lock holds those
+four steps together when threads launch on one device at once.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import threading
 
 import torch
 
-__all__ = ["build", "counts", "launch", "reset_counts", "KERNELS"]
+__all__ = ["build", "counts", "launch", "launch_flagged", "reset_counts", "HELPERS", "KERNELS"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG, "csrc")
@@ -54,7 +62,7 @@ KERNELS = {
     "tdc_lzw_parse": ("lzw_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P]),
     "tdc_plcp_segments": ("plcp_segments", [_P, _P, _L, _I, _P, _P]),
     # csrc/probes.cu
-    "tdc_probe3_gather": ("probe3_gather", [_P, _P, _P, _I, _L, _L, _P, _P]),
+    "tdc_probe3_gather": ("probe3_gather", [_P, _P, _P, _I, _L, _L, _P, _P, _P]),
     "tdc_probe6_roll_lane": ("probe6_roll_lane", [_P, _P, _P]),
     "tdc_probe6_roll_sublane": ("probe6_roll_sublane", [_P, _P, _P]),
     "tdc_probe6_extract": ("probe6_extract", [_P, _P, _P]),
@@ -69,8 +77,16 @@ KERNELS = {
     "tdc_probe8_d": ("probe8_d", [_P, _I, _I, _I, _P, _P, _P, _P]),
 }
 
+# host helpers of csrc/launch.cu, which launch nothing: name -> (result type, argument types)
+HELPERS = {
+    "tdc_mapped_word": (_P, [_I, ctypes.POINTER(_P)]),
+    "tdc_stream_wait": (_I, [_P]),
+}
+
 _counts = {name: 0 for name, _ in KERNELS.values()}
 _lib = None
+_fns: dict[str, tuple] = {}  # launcher -> (ctypes function, counter name), filled once by _load
+_flags: dict[int, tuple] = {}  # device index -> (host word, device pointer, lock)
 _lock = threading.Lock()
 
 
@@ -129,14 +145,31 @@ def build() -> str:
     return so
 
 
+def _stream() -> int:
+    """The raw handle of the current CUDA device's current stream (what
+    torch.cuda.current_stream().cuda_stream gives, without the Stream
+    object; a torch.cuda.stream(...) context sets it)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+def _device() -> int:
+    return torch._C._cuda_getDevice()
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for fn, (_, argtypes) in KERNELS.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            fns = {}
+            for fn, (name, argtypes) in KERNELS.items():
+                f = getattr(lib, fn)
+                f.argtypes, f.restype = argtypes, ctypes.c_int
+                fns[fn] = (f, name)
+            for fn, (restype, argtypes) in HELPERS.items():
+                f = getattr(lib, fn)
+                f.argtypes, f.restype = argtypes, restype
+            _fns.update(fns)
             _lib = lib
     return _lib
 
@@ -145,12 +178,47 @@ def launch(fn: str, *args) -> None:
     """Run launcher `fn` on the current CUDA stream; count it; raise on error.
 
     Tensor arguments pass their data pointers; the stream is appended."""
-    lib = _load()
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = getattr(lib, fn)(*c_args, torch.cuda.current_stream().cuda_stream)
+    entry = _fns.get(fn)
+    if entry is None:
+        _load()
+        entry = _fns[fn]
+    f, name = entry
+    rc = f(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], _stream())
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
-    _counts[KERNELS[fn][0]] += 1
+    _counts[name] += 1
+
+
+def _flag(device: int) -> tuple:
+    """(host word, device pointer, lock) of the device's mapped flag, allocated once."""
+    flag = _flags.get(device)
+    if flag is None:
+        lib = _load()
+        with _lock:
+            if device not in _flags:
+                dptr = ctypes.c_void_p()
+                host = lib.tdc_mapped_word(device, ctypes.byref(dptr))
+                if not host:
+                    raise RuntimeError("tdc_mapped_word: no mapped host memory")
+                _flags[device] = (ctypes.c_int32.from_address(host), dptr.value, threading.Lock())
+        flag = _flags[device]
+    return flag
+
+
+def launch_flagged(fn: str, *args) -> int:
+    """launch(fn, *args, flag) with the current device's mapped flag word,
+    zeroed first; waits for the current stream and returns the word (0
+    when the kernel found nothing to report). The word is one per device;
+    its lock keeps the zeroing, launch, wait and read of one call from
+    interleaving with another thread's on that device."""
+    word, dptr, lock = _flag(_device())
+    with lock:
+        word.value = 0
+        launch(fn, *args, dptr)
+        rc = _lib.tdc_stream_wait(_stream())
+        if rc != 0:
+            raise RuntimeError(f"{fn}: CUDA error {rc}")
+        return word.value
 
 
 def counts() -> dict[str, int]:

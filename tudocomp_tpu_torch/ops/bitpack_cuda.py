@@ -11,8 +11,9 @@ csrc/pack.cu.
 
 Each wrapper picks its route by the device of its input tensors: CPU
 tensors go to the plain PyTorch version beside it, CUDA tensors to the
-kernel, anything else raises. Arenas are int32 tensors holding u32 bit
-patterns.
+kernel, anything else raises. A width outside [0, 32] is reported in the
+launch path's mapped flag word (`kernels.launch_flagged`) and raises
+ValueError. Arenas are int32 tensors holding u32 bit patterns.
 """
 
 from __future__ import annotations
@@ -48,11 +49,6 @@ def check_widths(nbits: torch.Tensor) -> None:
         raise ValueError("token width outside [0, 32]")
 
 
-def _raise_on(err: torch.Tensor) -> None:
-    if int(err.item()):
-        raise ValueError("token width outside [0, 32]")
-
-
 def pack_blocks_plain(values, nbits, n_words: int):
     """Plain version of pack_blocks."""
     check_widths(nbits)
@@ -78,11 +74,8 @@ def pack_blocks(values, nbits, n_words: int):
     if NT == 0 or B == 0:
         return words, bits
     tile_bits = torch.empty((B, -(-NT // TILE)), dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-    kernels.launch(
-        "tdc_pack_blocks", values, nbits, B, NT, n_words, tile_bits, words, bits, err
-    )
-    _raise_on(err)
+    if kernels.launch_flagged("tdc_pack_blocks", values, nbits, B, NT, n_words, tile_bits, words, bits):
+        raise ValueError("token width outside [0, 32]")
     return words, bits
 
 
@@ -122,10 +115,7 @@ def pack_bytes_blocks(blocks, n_valid, table_vals, table_bits, hdr_words, hdr_bi
         return words, i32[3].clone()
     bits = torch.empty(B, dtype=torch.int32, device=dev)
     tile_bits = torch.empty((B, -(-bs // TILE)), dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-    kernels.launch(
-        "tdc_pack_bytes_blocks", blocks.contiguous(), *i32, B, bs, n_words,
-        tile_bits, words, bits, err,
-    )
-    _raise_on(err)
+    if kernels.launch_flagged("tdc_pack_bytes_blocks", blocks.contiguous(), *i32, B, bs, n_words,
+                              tile_bits, words, bits):
+        raise ValueError("token width outside [0, 32]")
     return words, bits

@@ -14,9 +14,11 @@ and its time on the card.
 Each wrapper picks its route by the device of its input: CUDA tensors go to
 the kernel, CPU tensors to the plain PyTorch version beside it (`*_plain`),
 which the tests hold to the Pallas bodies and which nothing on the card's
-path calls. Words are u32 bit patterns in int32 tensors, as everywhere in
-the port. The scripts' XLA-only parts (`hillis_cumsum`, `hillis_xor`,
-`hist2`) are plain torch functions here: they make the gather's inputs.
+path calls. A kernel that can find a bad input reports it in the launch
+path's mapped flag word (`kernels.launch_flagged`), and the wrapper raises.
+Words are u32 bit patterns in int32 tensors, as everywhere in the port.
+The scripts' XLA-only parts (`hillis_cumsum`, `hillis_xor`, `hist2`) are
+plain torch functions here: they make the gather's inputs.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from . import kernels
@@ -34,17 +37,19 @@ from .ops.bitpack_cuda import check_widths, on_cuda
 __all__ = [
     "broadcast_last_lane", "broadcast_last_lane_plain", "carry_into_vector",
     "carry_into_vector_plain", "carry_revisit", "carry_revisit_plain", "carry_scans",
-    "carry_scans_plain", "gather", "gather_plain", "hillis_cumsum", "hillis_xor", "hist2",
-    "main", "onehot_count", "onehot_count_plain", "pack_levels", "pack_levels_plain",
-    "rmw_loop8", "rmw_loop8_plain", "roll_lane", "roll_lane_plain", "roll_sublane",
-    "roll_sublane_plain", "scalar_extract", "scalar_extract_plain", "var_shift",
-    "var_shift_plain", "window_rmw", "window_rmw_plain",
+    "carry_scans_plain", "gather", "gather_arms", "gather_cases", "gather_plain",
+    "hillis_cumsum", "hillis_xor", "hist2", "main", "onehot_count", "onehot_count_plain",
+    "pack_levels", "pack_levels_plain", "rmw_loop8", "rmw_loop8_plain", "roll_lane",
+    "roll_lane_plain", "roll_sublane", "roll_sublane_plain", "scalar_extract",
+    "scalar_extract_plain", "var_shift", "var_shift_plain", "window_rmw", "window_rmw_plain",
 ]
 
 ROWS, LANES = 8, 128
 TILE = ROWS * LANES  # tokens of a tile, threads of a CTA in csrc/probes.cu
 WIN = 384  # the scripts' window, in words
 TILE_WIN = 1280  # words of p7_pack_kernel's per-tile window
+G_TILE = 1024  # idx entries a CTA of gather_kernel takes
+G_STAGE_WORDS = 6144  # the widest span of S a gather tile stages in shared memory
 _U32 = 0xFFFFFFFF
 
 # the scripts' own shapes
@@ -55,15 +60,9 @@ P7_NWP = -(-P7_N_WORDS // 128) * 128 + WIN + 128
 P8_B, P8_T, P8_NWP = 2, 3, 1664
 
 
-def _err_flag(dev) -> torch.Tensor:
-    return torch.zeros(1, dtype=torch.int32, device=dev)
-
-
-def _i32(x: torch.Tensor, shape=None) -> torch.Tensor:
+def _i32(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.int32:
         raise TypeError(f"expected an int32 tensor, not {x.dtype}")
-    if shape is not None and tuple(x.shape) != tuple(shape):
-        raise ValueError(f"expected shape {tuple(shape)}, not {tuple(x.shape)}")
     return x.contiguous()
 
 
@@ -105,23 +104,71 @@ def hist2(nbits: torch.Tensor, n_words: int) -> torch.Tensor:
 
 
 def gather_plain(S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= S.shape[1]):
+        raise IndexError("gather index out of range")
     return torch.gather(S, 1, idx.to(torch.int64))
 
 
-def gather(S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_arms(S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 [3]: the tiles of G_TILE entries of each row that gather_kernel
+    takes (staged, direct, out of range), by its rule: a tile with an index
+    outside [0, ns) is out of range; else it is staged when its indices span
+    at most G_STAGE_WORDS words and S starts on a 16-byte bound."""
+    B, ni = idx.shape
+    if idx.numel() == 0:
+        return torch.zeros(3, dtype=torch.int64, device=idx.device)
+    T = -(-ni // G_TILE)
+    x = torch.cat([idx, idx[:, -1:].expand(B, T * G_TILE - ni)], 1).reshape(B, T, G_TILE).to(torch.int64)
+    mn, mx = x.amin(2), x.amax(2)
+    bad = (mn < 0) | (mx >= S.shape[1])
+    staged = ~bad & (mx - mn < G_STAGE_WORDS) & (S.data_ptr() % 16 == 0)
+    return torch.stack([staged.sum(), (~bad & ~staged).sum(), bad.sum()])
+
+
+def gather_cases(dev, seed: int = 3) -> dict:
+    """name -> (S, idx): the shapes the gather is held to beside the probe's
+    own (tests, chip_smoke.py). Each row holds index 0 and ns - 1."""
+    rng = np.random.default_rng(seed)
+
+    def case(B, ns, idx):
+        idx[:, 0], idx[:, -1] = 0, ns - 1
+        S = rng.integers(-(1 << 31), 1 << 31, (B, ns)).astype(np.int32)
+        return torch.from_numpy(S).to(dev), torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+    return {
+        # sorted, rising ~5 a step, then held at ns - 1 as hist2's clamp holds it: staged
+        "sorted": case(3, 20011, np.minimum(np.cumsum(rng.integers(3, 7, (3, 5003)), 1), 20010)),
+        # unsorted over rows wider than the staged span: direct
+        "random": case(2, 300007, rng.integers(0, 300007, (2, 4099))),
+        "one entry": case(1, 7, np.zeros((1, 1), np.int64)),
+        # ni odd and past a tile: odd rows start misaligned
+        "odd rows": case(5, 1001, rng.integers(0, 1001, (5, 6151))),
+        # B * ns not a multiple of 4: the last row's window ends inside the allocation's last 16 bytes
+        "ends": case(3, 4095, rng.integers(0, 4095, (3, 2053))),
+        "ns below a tile": case(4, 100, rng.integers(0, 100, (4, 3000))),
+    }
+
+
+def gather(S: torch.Tensor, idx: torch.Tensor, arms: torch.Tensor | None = None) -> torch.Tensor:
     """out[b, i] = S[b, idx[b, i]]; S [B, ns], idx [B, ni], int32 both.
-    An index outside [0, ns) raises."""
+    An index outside [0, ns) raises IndexError. arms, if given (int32 [3]
+    on the inputs' device), gains the count of tiles by the arm the kernel
+    took (gather_arms's rule on the CPU)."""
     if not on_cuda(S, idx):
+        if arms is not None:
+            arms += gather_arms(S, idx).to(arms.dtype)
         return gather_plain(S, idx)
-    S, idx = _i32(S), _i32(idx)
+    if S.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError(f"expected int32 tensors, not {S.dtype}, {idx.dtype}")
     if S.dim() != 2 or idx.dim() != 2 or S.shape[0] != idx.shape[0]:
         raise ValueError(f"expected S [B, ns] and idx [B, ni], not {tuple(S.shape)}, {tuple(idx.shape)}")
+    if arms is not None and (arms.dtype != torch.int32 or arms.shape != (3,) or arms.device != S.device):
+        raise ValueError("arms must be an int32 [3] tensor on the inputs' device")
+    S, idx = S.contiguous(), idx.contiguous()
     out = torch.empty_like(idx)
     if idx.numel() == 0:
         return out
-    err = _err_flag(S.device)
-    kernels.launch("tdc_probe3_gather", S, idx, out, S.shape[0], S.shape[1], idx.shape[1], err)
-    if int(err.item()):
+    if kernels.launch_flagged("tdc_probe3_gather", S, idx, out, S.shape[0], S.shape[1], idx.shape[1], arms):
         raise IndexError("gather index out of range")
     return out
 
@@ -130,9 +177,14 @@ def gather(S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _tile_op(fn: str, plain, x: torch.Tensor) -> torch.Tensor:
-    if not on_cuda(x):
-        return plain(x)
-    x = _i32(x, (ROWS, LANES))
+    if not x.is_cuda:
+        if x.is_cpu:
+            return plain(x)
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.int32 or x.shape != (ROWS, LANES):
+        raise ValueError(f"expected an int32 [{ROWS}, {LANES}] tile, not {x.dtype} {tuple(x.shape)}")
+    if x.data_ptr() & 15 or not x.is_contiguous():  # the kernels read 16-byte vectors
+        x = x.clone(memory_format=torch.contiguous_format)
     out = torch.empty_like(x)
     kernels.launch(fn, x, out)
     return out
@@ -214,9 +266,7 @@ def window_rmw(i: torch.Tensor, n_words: int = P6_RMW_WORDS) -> torch.Tensor:
         return window_rmw_plain(i, n_words)
     i = _i32(i).reshape(-1)[:1]
     out = torch.empty((1, 1, n_words), dtype=torch.int32, device=i.device)
-    err = _err_flag(i.device)
-    kernels.launch("tdc_probe6_rmw", i, out, n_words, err)
-    if int(err.item()):
+    if kernels.launch_flagged("tdc_probe6_rmw", i, out, n_words):
         raise IndexError("window outside the row")
     return out
 
@@ -310,9 +360,7 @@ def pack_levels(vals, nbits, n_wp: int, level: int, want_mid: bool = False):
         mid = torch.empty((B, NT, 2), dtype=torch.int32, device=dev)
     elif want_mid and level == 4:
         mid = torch.empty((B, NT // TILE, TILE_WIN), dtype=torch.int32, device=dev)
-    err = _err_flag(dev)
-    kernels.launch("tdc_probe7_pack", vals, nbits, B, NT, n_wp, words, bits, level, mid, err)
-    if int(err.item()):
+    if kernels.launch_flagged("tdc_probe7_pack", vals, nbits, B, NT, n_wp, words, bits, level, mid):
         raise ValueError("token width outside [0, 32]")
     return (words, bits, mid) if want_mid else (words, bits)
 
@@ -330,9 +378,7 @@ def _tiles_op(fn: str, plain, v: torch.Tensor, n_wp: int, with_err: bool = False
     words = torch.empty((B, 1, n_wp), dtype=torch.int32, device=v.device)
     carry = torch.empty(B, dtype=torch.int32, device=v.device)
     if with_err:
-        err = _err_flag(v.device)
-        kernels.launch(fn, v, B, T, n_wp, words, carry, err)
-        if int(err.item()):
+        if kernels.launch_flagged(fn, v, B, T, n_wp, words, carry):
             raise IndexError("window outside the row")
     else:
         kernels.launch(fn, v, B, T, n_wp, words, carry)
