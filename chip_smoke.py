@@ -38,7 +38,12 @@ line each:
                     shapes phase 7 launches them with (the whole input as
                     [200, 262144] and [6400, 8192]; the plain version of the
                     first runs on its first 32 blocks, the host parse on all
-                    200), at [128, 8192] and at an odd batch of 131 blocks;
+                    200), at [128, 8192], at an odd batch of 131 blocks, and
+                    E on [4, 262144] of one letter (phrases up to 724 bytes)
+                    and of uniform random bytes (its table near its worst
+                    load); E's wrapper and device ms at both main-path
+                    shapes, with the factors of the longest block (the
+                    longest chain of rounds) and the ms per factor;
   7. lz78 roundtrip 50 MiB of bench.py's English stand-in through
                     blockwise(lz78(coder=bit)) (bs 256 KiB),
                     blockwise(lz78(coder=bit),bs=8192) and
@@ -873,7 +878,8 @@ def _same(a, b) -> bool:
 def lz78_kernel_phase(text, dev, gpu):
     """Phase 6: E and F against their plain versions and the host parses, at
     the main path's shapes (the whole input, split as phase 7 splits it) and
-    at odd ones. The kernels line takes the times at [6400, 8192]."""
+    at odd ones; E's numbers at both main shapes. The kernels line takes
+    the times at [6400, 8192], E's also by shape."""
     import numpy as np
     import torch
 
@@ -885,11 +891,17 @@ def lz78_kernel_phase(text, dev, gpu):
     odd, odd_nv = batch(5 * MIB, 131, 8192)  # B not a multiple of 128
     odd[0] = ord("e")  # one byte throughout: ends inside a phrase
     odd_nv[1], odd_nv[2], odd_nv[3] = 0, 5000, 1  # empty, ragged, one byte
+    one = np.full((4, BS), ord("e"), np.uint8)  # phrases of 1 .. 724 bytes
+    one_nv = np.array([BS, BS - 1, BS - 418, 1], np.int32)  # BS - 418: ends on a factor
+    rand = np.random.default_rng(11).integers(0, 256, (4, BS)).astype(np.uint8)
+    rand_nv = np.array([BS, BS - 1, BS - 2, BS - 3], np.int32)
     cases = {
         "lz78 [128, 8192]": ("lz78_parse", *batch(0, 128, 8192)),
         "lz78 odd [131, 8192]": ("lz78_parse", odd, odd_nv),
         "lzw [128, 8192]": ("lzw_parse", *batch(0, 128, 8192)),
         "lzw odd [131, 8192]": ("lzw_parse", odd, odd_nv),
+        "lz78 one letter [4, 262144]": ("lz78_parse", one, one_nv),
+        "lz78 random [4, 262144]": ("lz78_parse", rand, rand_nv),
     }
     line_case = {}
     for bs, kname in LZ78_ALGOS.values():
@@ -899,13 +911,13 @@ def lz78_kernel_phase(text, dev, gpu):
         if bs == 8192:
             line_case[kname] = name
     errs = {"lz78_parse": 0, "lzw_parse": 0}
-    report, timing = {}, {}
+    report, timing, e_shapes = {}, {}, {}
     for name, (kname, blocks, n_valid) in cases.items():
         kernel, plain, host = _parse_fns(kname)
         b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
         got = kernel(b, nv)
         torch.cuda.empty_cache()  # the plain child table of 200 blocks of 256 KiB takes ~52 GiB
-        k = PLAIN_BLOCKS if blocks.shape[1] == BS else len(blocks)
+        k = min(PLAIN_BLOCKS, len(blocks)) if blocks.shape[1] == BS else len(blocks)
         want, plain_ms = cuda_once(lambda: plain(b[:k], nv[:k]))
         err = max_abs_err(tuple(g[:k] for g in got), want)
         per_block = _per_block(kname, got)
@@ -921,12 +933,21 @@ def lz78_kernel_phase(text, dev, gpu):
         report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_blocks": k, "factors": int(got[-1].sum()),
                         "blocks_ending_mid_phrase": mid}
         errs[kname] = max(errs[kname], err)
-        if name == line_case[kname]:
-            timing[kname] = {"ms": ms, **device_time(lambda: kernel(b, nv), kname, iters=3),
-                             "plain_ms": plain_ms, **bound(kname, (b, nv), got)}
+        line = name == line_case[kname]
+        e_main = kname == "lz78_parse" and (line or name == f"lz78 [{len(blocks)}, {BS}]")
+        dt = device_time(lambda: kernel(b, nv), kname, iters=3) if line or e_main else {}
+        if e_main:
+            longest = int(got[-1].max())  # the factors of the longest chain of rounds
+            e_shapes[f"[{len(blocks)}, {blocks.shape[1]}]"] = {
+                "ms": ms, **dt, "plain_ms": plain_ms, "plain_blocks": k,
+                "longest_block_factors": longest, "ms_per_factor": ms / longest}
+        if line:
+            timing[kname] = {"ms": ms, **dt, "plain_ms": plain_ms, **bound(kname, (b, nv), got)}
         del b, nv, got, want
+    timing["lz78_parse"]["by_shape"] = e_shapes
     torch.cuda.empty_cache()
-    emit({"phase": "lz78 kernels", "max_abs_err": errs, "tolerance": 0, "cases": report, "card": gpu})
+    emit({"phase": "lz78 kernels", "max_abs_err": errs, "tolerance": 0, "cases": report,
+          "e_by_shape": e_shapes, "card": gpu})
     return errs, timing
 
 
@@ -1101,7 +1122,7 @@ def gather_body_ms(S, idx) -> float:
     from tudocomp_tpu_torch import kernels
 
     out = idx.new_empty(idx.shape)
-    flag = kernels._flag(kernels._device())[1]
+    flag = kernels._flag(S.get_device())[1]
     return cuda_ms(lambda: kernels.launch("tdc_probe3_gather", S, idx, out, S.shape[0], S.shape[1],
                                           idx.shape[1], None, flag), max_iters=200)
 
@@ -1204,11 +1225,11 @@ def probes_phase(dev, gpu):
     side = torch.cuda.Stream()
     torch.cuda.synchronize()
     with torch.cuda.stream(side):
-        if kernels._stream() != side.cuda_stream:
-            raise AssertionError("kernels._stream() is not the side stream")
+        if kernels._stream(0) != side.cuda_stream:
+            raise AssertionError("kernels._stream(0) is not the side stream")
         on_side = probes.roll_lane(xs)
     side.synchronize()
-    if kernels._stream() != torch.cuda.current_stream().cuda_stream or max_abs_err(on_side, probes.roll_lane_plain(xs)):
+    if kernels._stream(0) != torch.cuda.current_stream().cuda_stream or max_abs_err(on_side, probes.roll_lane_plain(xs)):
         raise AssertionError("a launch on a side stream went wrong")
 
     # the entry point, as `python -m tudocomp_tpu_torch.probes` runs it
@@ -1266,8 +1287,8 @@ def probes_phase(dev, gpu):
     launch_path = {
         "stream_handle_us": {
             "torch.cuda.current_stream().cuda_stream": host_us(lambda: torch.cuda.current_stream().cuda_stream, 20000),
-            "torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()) (kernels._stream)":
-                host_us(kernels._stream, 20000),
+            "torch._C._cuda_getCurrentRawStream(0) (kernels._stream(0))":
+                host_us(lambda: kernels._stream(0), 20000),
             "torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())":
                 host_us(lambda: torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()), 20000),
         },
@@ -1276,6 +1297,8 @@ def probes_phase(dev, gpu):
                 lambda: kernels.launch("tdc_probe6_roll_lane", x8, out8)),
             "probes.roll_lane(x)": host_us(lambda: probes.roll_lane(x8)),
             "torch.roll(x, 1, 1)": host_us(lambda: torch.roll(x8, 1, 1)),
+            "probes.roll_sublane(x)": host_us(lambda: probes.roll_sublane(x8)),
+            "torch.roll(x, 1, 0)": host_us(lambda: torch.roll(x8, 1, 0)),
             "probes.gather(S, idx) (waits for the card)": host_us(lambda: probes.gather(S, idx), 200),
             "torch.gather(S, 1, idx64)": host_us(lambda: torch.gather(S, 1, idx64), 200),
         },

@@ -83,3 +83,9 @@ def test_host_route_matches(algo, procs, monkeypatch):
     monkeypatch.setenv("TDC_BLOCKWISE_PROCS", procs)
     assert compress(algo, data, device="cpu") == want
     assert decompress(want, device="cpu") == data
+
+
+def test_blockwise_inner_cites_its_queue_item():
+    """A blockwise inner is not ported: the error names its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4d\)"):
+        compress("blockwise(blockwise(encode(huff)))", _data(), device="cpu")

@@ -126,6 +126,60 @@ def test_lz78_parse_kernel(dev):
     _equal(got, lc.lz78_parse_blocks_plain(blocks, n_valid))
 
 
+def _lz78_case(name):
+    """numpy blocks and n_valid of one case of kernel E."""
+    rng = np.random.default_rng(8)
+    if name == "one letter [2, 262144]":  # phrases up to 724 bytes, far past a warp's 32
+        blocks = np.full((2, 1 << 18), ord("a"), np.uint8)
+        return blocks, np.array([1 << 18, (1 << 18) - 1000], np.int32)
+    if name == "random [4, 8192]":  # the table near its worst load
+        return rng.integers(0, 256, (4, 8192)).astype(np.uint8), np.full(4, 8192, np.int32)
+    if name == "random [2, 65536]":  # tables in device memory
+        return rng.integers(0, 256, (2, 65536)).astype(np.uint8), np.array([65536, 65000], np.int32)
+    if name == "corpus [6, 4096]":  # tests/test_torch_lz78.py's _corpus
+        bs = 4096
+        blocks = np.zeros((6, bs), np.uint8)
+        blocks[0] = rng.integers(0, 256, bs)
+        blocks[1] = rng.integers(97, 100, bs)
+        blocks[2] = 65
+        blocks[3] = np.frombuffer((b"abracadabra " * (bs // 12 + 1))[:bs], np.uint8)
+        blocks[4, : bs // 2] = rng.integers(0, 4, bs // 2)
+        return blocks, np.array([bs, bs, bs, bs, bs // 2, 0], np.int32)
+    if name == "empty, one byte, ragged [5, 3001]":
+        b, nv = _text_blocks("cpu")
+        return b.numpy(), nv.numpy()
+    if name == "odd B [131, 1024]":
+        words = [b"lz78 ", b"parse ", b"on ", b"the ", b"card. ", b"warp "]
+        text = b"".join(rng.choice(words, 40000))[: 131 * 1024]
+        blocks = np.frombuffer(text, np.uint8).reshape(131, 1024).copy()
+        return blocks, rng.integers(0, 1025, 131).astype(np.int32)
+    raise KeyError(name)
+
+
+LZ78_CASES = ["one letter [2, 262144]", "random [4, 8192]", "random [2, 65536]", "corpus [6, 4096]",
+              "empty, one byte, ragged [5, 3001]", "odd B [131, 1024]"]
+
+
+@pytest.mark.parametrize("case", LZ78_CASES)
+def test_lz78_parse_kernel_cases(dev, case):
+    """Kernel E against its plain version and the host parse."""
+    from tudocomp_tpu_torch.compressors.lz78 import lz78_parse
+
+    blocks, n_valid = _lz78_case(case)
+    b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
+    kernels.reset_counts()
+    got = lc.lz78_parse_blocks(b, nv)
+    torch.cuda.synchronize()
+    assert kernels.counts()["lz78_parse"] == 1
+    _equal(got, lc.lz78_parse_blocks_plain(b, nv))
+    parents, chars, nf = (t.cpu().numpy() for t in got)
+    for i in range(len(blocks)):
+        hp, hc = lz78_parse(blocks[i, : n_valid[i]])
+        assert nf[i] == len(hp)
+        np.testing.assert_array_equal(parents[i, : nf[i]], hp)
+        np.testing.assert_array_equal(chars[i, : nf[i]], hc)
+
+
 def test_lzw_parse_kernel(dev):
     blocks, n_valid = _text_blocks(dev)
     kernels.reset_counts()
@@ -233,6 +287,25 @@ def test_probe6_kernels(dev, tile):
     assert kernels.counts()["probe6_rmw"] == 3
     with pytest.raises(IndexError):
         probes.window_rmw(torch.tensor([[1152]], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "misaligned", "transposed"])
+def test_probe6_roll_sublane_kernel(dev, layout):
+    """The row copy against torch.roll on tiles off a 16-byte bound or not
+    contiguous (the wrapper copies those into an aligned tile)."""
+    from tudocomp_tpu_torch import probes
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32)).to(dev)
+    if layout == "misaligned":  # one word past a 16-byte bound
+        x = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16
+    elif layout == "transposed":
+        x = x.t().contiguous().t()
+        assert not x.is_contiguous()
+    kernels.reset_counts()
+    assert torch.equal(probes.roll_sublane(x).cpu(), torch.roll(x, 1, 0).cpu())
+    assert kernels.counts()["probe6_roll_sublane"] == 1
 
 
 @pytest.mark.parametrize("level", [1, 2, 3, 4, 5])

@@ -11,7 +11,12 @@ Two kinds of checks, each case its own test:
     nonzero return raises RuntimeError and is not counted, the library is
     loaded once and no lock is taken after that, and the flag word is
     zeroed before the launch and read after one wait on the stream, with
-    two threads on one device each reading their own launch's word.
+    two threads on one device each reading their own launch's word;
+  - the device a launch runs on, with torch's device accessors replaced by
+    stand-ins and tensors that say they lie on card 1 while card 0 is
+    current: the stream of card 1 is passed, card 1 is current for the
+    call and card 0 again after it (also after an error), card 1's flag
+    word is used and waited for, and tensors on two cards raise.
 The `cuda` tests at the end need a card and skip here:
 
     python -m pytest tests/test_torch_launch.py -q             # here
@@ -100,22 +105,69 @@ class _CountingLock:
         return False
 
 
+STREAMS = {0: 0xABC, 1: 0xDEF}  # each card's current stream
+
+
+class _Cards:
+    """Stand-ins for torch._C's device accessors: card 0 current at first."""
+
+    def __init__(self):
+        self.current, self.switches = 0, []
+
+    def get(self):
+        return self.current
+
+    def stream(self, device):
+        return STREAMS[device]
+
+    def exchange(self, device):
+        prev, self.current = self.current, device
+        self.switches.append(device)
+        return prev
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on CUDA card `card`."""
+
+    card = 1
+
+    @property
+    def device(self):
+        return torch.device("cuda", self.card)
+
+    def get_device(self):
+        return self.card
+
+
+def _on_card(t, card):
+    t = t.as_subclass(_OnCard)
+    t.card = card
+    return t
+
+
+def _card1(t):
+    return _on_card(t, 1)
+
+
 @pytest.fixture
 def fake(monkeypatch):
-    """A fake library behind kernels.launch; its stream is 0xABC on device 0."""
+    """A fake library behind kernels.launch; card 0 is current, its stream 0xABC."""
     lib = _FakeLib()
     loads = []
     lock = _CountingLock()
+    cards = _Cards()
     monkeypatch.setattr(kernels, "build", lambda: "fake.so")
     monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: loads.append(path) or lib)
-    monkeypatch.setattr(kernels, "_stream", lambda: 0xABC)
-    monkeypatch.setattr(kernels, "_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", cards.get, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", cards.stream, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_exchangeDevice", cards.exchange, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_maybeExchangeDevice", cards.exchange, raising=False)
     monkeypatch.setattr(kernels, "_lib", None)
     monkeypatch.setattr(kernels, "_fns", {})
     monkeypatch.setattr(kernels, "_flags", {})
     monkeypatch.setattr(kernels, "_lock", lock)
     monkeypatch.setattr(kernels, "_counts", {name: 0 for name, _ in kernels.KERNELS.values()})
-    lib.loads, lib.lock = loads, lock
+    lib.loads, lib.lock, lib.cards = loads, lock, cards
     return lib
 
 
@@ -125,6 +177,7 @@ def _case_stream_last(lib):
     assert lib.tdc_probe6_roll_lane.calls == [(x.data_ptr(), o.data_ptr(), 0xABC)]
     kernels.launch("tdc_probe3_gather", x, x, o, 8, 128, 128, None, 5)
     assert lib.tdc_probe3_gather.calls[0][-3:] == (None, 5, 0xABC)
+    assert lib.cards.switches == []  # tensors off the card: the current device, no switch
 
 
 def _case_counts_once(lib):
@@ -219,6 +272,63 @@ def test_launch_against_a_fake_library(fake, case):
     CASES[case](fake)
 
 
+def _case_stream_of_card1(lib):
+    seen = []
+    lib.fns["tdc_probe6_roll_lane"] = _FakeFn(effect=lambda *a: seen.append(lib.cards.current))
+    x, o = _card1(torch.zeros(8, 128, dtype=torch.int32)), _card1(torch.zeros(8, 128, dtype=torch.int32))
+    kernels.launch("tdc_probe6_roll_lane", x, o, 3)
+    assert lib.tdc_probe6_roll_lane.calls == [(x.data_ptr(), o.data_ptr(), 3, STREAMS[1])]
+    assert seen == [1]  # card 1 current during the call
+    assert lib.cards.current == 0 and lib.cards.switches == [1, 0]
+    assert kernels.counts()["probe6_roll_lane"] == 1
+
+
+def _case_restored_after_an_error(lib):
+    lib.tdc_probe6_roll_lane.rc = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        kernels.launch("tdc_probe6_roll_lane", _card1(torch.zeros(4)), 2)
+    assert lib.cards.current == 0 and lib.cards.switches == [1, 0]
+    assert kernels.counts()["probe6_roll_lane"] == 0
+
+
+def _case_flag_of_card1(lib):
+    order = []
+
+    def kernel(*args):
+        assert args[-2] == 0xD001  # card 1's flag word
+        order.append(("launch", lib.cards.current))
+        lib.word.value = 1
+
+    lib.fns["tdc_probe6_rmw"] = _FakeFn(effect=kernel)
+    lib.fns["tdc_stream_wait"] = _FakeFn(effect=lambda s: order.append(("wait", s, lib.cards.current)))
+    assert kernels.launch_flagged("tdc_probe6_rmw", _card1(torch.zeros(1, dtype=torch.int32)), 2, 3) == 1
+    assert [c[0] for c in lib.tdc_mapped_word.calls] == [1]
+    assert order == [("launch", 1), ("wait", STREAMS[1], 1)]
+    assert lib.cards.current == 0
+
+
+def _case_two_cards_raise(lib):
+    with pytest.raises(ValueError, match="CUDA devices 1 and 0"):
+        kernels.launch("tdc_probe6_roll_lane", _card1(torch.zeros(4)), _on_card(torch.zeros(4), 0))
+    with pytest.raises(ValueError, match="CUDA devices 0 and 1"):
+        kernels.launch_flagged("tdc_probe6_rmw", _on_card(torch.zeros(4), 0), _card1(torch.zeros(4)), 3)
+    assert lib.tdc_probe6_roll_lane.calls == [] and lib.tdc_probe6_rmw.calls == []
+    assert lib.cards.switches == [] and sum(kernels.counts().values()) == 0
+
+
+DEVICE_CASES = {
+    "card 1's stream, card 1 current for the call": _case_stream_of_card1,
+    "card 0 restored after an error": _case_restored_after_an_error,
+    "card 1's flag word and stream wait": _case_flag_of_card1,
+    "tensors on two cards raise": _case_two_cards_raise,
+}
+
+
+@pytest.mark.parametrize("case", list(DEVICE_CASES))
+def test_launch_on_the_tensors_device(fake, case):
+    DEVICE_CASES[case](fake)
+
+
 # ---- on the card ------------------------------------------------------------------------------
 
 
@@ -233,17 +343,17 @@ def dev():
 def test_stream_handle_follows_the_current_stream(dev):
     from tudocomp_tpu_torch import probes
 
-    assert kernels._stream() == torch.cuda.current_stream().cuda_stream
+    assert kernels._stream(0) == torch.cuda.current_stream().cuda_stream
     side = torch.cuda.Stream()
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32)).to(dev)
     torch.cuda.synchronize()
     with torch.cuda.stream(side):
-        assert kernels._stream() == side.cuda_stream
+        assert kernels._stream(0) == side.cuda_stream
         got = probes.roll_lane(x)
         S, idx = probes.gather_cases(dev)["odd rows"]
         g = probes.gather(S, idx)  # waits on the side stream
     side.synchronize()
     assert torch.equal(got.cpu(), probes.roll_lane_plain(x).cpu())
     assert torch.equal(g.cpu(), probes.gather_plain(S, idx).cpu())
-    assert kernels._stream() == torch.cuda.current_stream().cuda_stream
+    assert kernels._stream(0) == torch.cuda.current_stream().cuda_stream

@@ -109,6 +109,50 @@ def test_wrappers_shapes_and_zero_padding():
         lc.lzw_parse_blocks(b, nv + 301)
 
 
+def _z_closed(bs):
+    """z_max by its closed form below 3-byte phrases: every 1-byte string,
+    then 2-byte ones, then 3-byte ones."""
+    if bs <= 256:
+        return bs
+    if bs <= 256 + 2 * 65536:
+        return 256 + (bs - 256) // 2
+    return 256 + 65536 + (bs - 256 - 2 * 65536) // 3
+
+
+@pytest.mark.parametrize("bs", [0, 1, 64, 255, 256, 257, 300, 1024, 4096, 8192, 131328, 131329, 131331, 1 << 18])
+def test_kernel_e_table_size(bs):
+    """Kernel E's table: z_max(bs) nodes at most, a power of two of slots at
+    most 55% full at z_max + 1 entries, and no power of two below it is."""
+    z = lc.z_max(bs)
+    assert z == _z_closed(bs)
+    slots = 1 << lc.table_log2(bs)
+    assert 20 * (z + 1) <= 11 * slots
+    assert slots == 16 or 20 * (z + 1) > 11 * (slots // 2)
+    assert (lc.z_max(8192), 1 << lc.table_log2(8192)) == (4224, 1 << 13)
+    assert (lc.z_max(1 << 18), 1 << lc.table_log2(1 << 18)) == (109397, 1 << 18)
+
+
+def _nodes(parents, chars):
+    """The trie nodes a parse creates: its distinct factors."""
+    return len(set(zip(parents.tolist(), chars.tolist())))
+
+
+@pytest.mark.parametrize("bs", [64, 256, 1000, 4096, 8192])
+def test_kernel_e_table_holds_every_parse(bs):
+    """z_max bounds the nodes of the _corpus blocks and of uniform random
+    bytes, which come within 5% of it from 1000 bytes on (the table near
+    its worst load; shorter blocks repeat 1-byte phrases)."""
+    blocks, n_valid = _corpus(bs)
+    rng = np.random.default_rng(bs)
+    blocks = np.concatenate([blocks, rng.integers(0, 256, (2, bs)).astype(np.uint8)])
+    n_valid = np.concatenate([n_valid, [bs, bs - 1]]).astype(np.int32)
+    for b in range(len(blocks)):
+        parents, chars = lz78_parse(blocks[b, : n_valid[b]])
+        assert _nodes(parents, chars) <= lc.z_max(int(n_valid[b])) <= lc.z_max(bs)
+    parents, chars = lz78_parse(blocks[-2])
+    assert bs < 1000 or _nodes(parents, chars) >= 0.95 * lc.z_max(bs)
+
+
 def test_parse_gate(monkeypatch):
     """The one host routing of the device parse is the size gate."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")  # no card needed to name one

@@ -50,7 +50,7 @@ class BlockwiseCompressor(Compressor):
         av = self.env.option("inner").as_algorithm()
         if av.name == "blockwise":
             raise NotImplementedError(
-                "blockwise as the inner compressor is not ported yet (ROADMAP.md, Queue 1 item 1)"
+                "blockwise as the inner compressor is not ported yet (ROADMAP.md, Queue 1 item 4d)"
             )
         return self.env.registry.select_algorithm(av, "compressor"), av
 

@@ -3,7 +3,7 @@
 The port's copy of tudocomp_tpu/compressors/simple.py, trimmed to
 LiteralEncoder (compressors/LiteralEncoder.hpp:12-42): per-byte
 coder.encode(c, literal_r); decode until eof. The JAX package's noop, rle
-and mtf are not ported yet (ROADMAP.md, Queue 1 item 10).
+and mtf are not ported yet (ROADMAP.md, Queue 1 item 4a).
 """
 
 from __future__ import annotations

@@ -17,8 +17,8 @@
 //     from a window of S that one TMA bulk copy brought into shared memory
 //     (indices that stay close, as the probe's sorted ones) or straight from
 //     device memory with all its loads in flight.
-//   - The lane roll is a warp shuffle: one warp a row, a 16-byte vector a
-//     lane, no shared memory and no barrier.
+//   - The lane roll is a warp shuffle and the sublane roll a row copy: one
+//     warp a row, a 16-byte vector a lane, no shared memory and no barrier.
 //   - The roll scans (lane scan, then sublane scan of the row totals) are
 //     one CTA-wide scan: warp shuffles, then the 32 warp totals in shared
 //     memory. The segmented XOR scan per target word runs over a warp.
@@ -282,12 +282,13 @@ __global__ void __launch_bounds__(ROWS * 32) p6_roll_lane_kernel(const int4* __r
   o[threadIdx.x] = make_int4(prev, v.x, v.y, v.z);
 }
 
-__global__ void __launch_bounds__(TILE) p6_roll_sublane_kernel(const int32_t* x, int32_t* o) {
-  __shared__ int32_t t[TILE];
-  const int tid = threadIdx.x, r = tid >> 7, c = tid & 127;
-  t[tid] = x[tid];
-  __syncthreads();
-  o[tid] = t[((r + ROWS - 1) & (ROWS - 1)) * LANES + c];
+// pltpu.roll(x, 1, axis=0): row r - 1 (mod 8) copied to row r. One warp a
+// row (8 warps); lane l moves 16-byte vector l of the row. No shared memory,
+// no barrier.
+__global__ void __launch_bounds__(ROWS * 32) p6_roll_sublane_kernel(const int4* __restrict__ x,
+                                                                    int4* __restrict__ o) {
+  const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  o[threadIdx.x] = x[((r + ROWS - 1) & (ROWS - 1)) * 32 + lane];
 }
 
 // every element becomes 2 * x[7, 0]: a scalar taken out of a computed vector
@@ -559,14 +560,16 @@ extern "C" int tdc_probe3_gather(const void* S, const void* idx, void* out, int 
   return last_error();
 }
 
-// x, o: one [8, 128] int32 tile each (roll_lane: 16-byte aligned).
+// x, o: one [8, 128] int32 tile each (the two rolls: 16-byte aligned).
 extern "C" int tdc_probe6_roll_lane(const void* x, void* o, void* stream) {
   if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
   p6_roll_lane_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x), static_cast<int4*>(o));
   return last_error();
 }
 extern "C" int tdc_probe6_roll_sublane(const void* x, void* o, void* stream) {
-  p6_roll_sublane_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
+  if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
+  p6_roll_sublane_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x),
+                                                      static_cast<int4*>(o));
   return last_error();
 }
 extern "C" int tdc_probe6_extract(const void* x, void* o, void* stream) {

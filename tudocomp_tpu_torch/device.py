@@ -56,12 +56,15 @@ def use_device(env_var: str, device: torch.device) -> bool:
 
 
 # Largest block the device parse takes, lz78 and lzw alike; larger blocks
-# take the host parse. The kernels run one thread per block, so their time
-# grows with the block while the host's does not. Encoding 50 MiB of English
-# text on an H100 (700 W), the device parse is 1.3-2.1x faster than the host
-# parse at 8 KiB to 1 MiB blocks; at 4 MiB one run has it ahead and another
-# behind (PERF.md section 7). The JAX package's caps (lz78 256 KiB, lzw
-# 8 KiB) were the TPU's VMEM limits.
+# take the host parse. The kernels run a thread (F) or a warp (E) per block,
+# so their time grows with the block while the host's does not. Encoding 50
+# MiB of English text on an H100 (700 W) with a thread per block in both
+# kernels, the device parse was 1.3-2.1x faster than the host parse at 8
+# KiB to 1 MiB blocks; at 4 MiB one run had it ahead and another behind.
+# With E a warp per block, 4 MiB blocks encoded in 1.09 s against 4.89 s
+# for lz78 and 2.67 against 4.99 s for lzw (chip_smoke.py phase 8, NVIDIA
+# H100 80GB HBM3 at 700 W); the cap has not been set again from that. The
+# JAX package's caps (lz78 256 KiB, lzw 8 KiB) were the TPU's VMEM limits.
 PARSE_MAX_BS = 1 << 20
 
 

@@ -8,17 +8,22 @@ named by a hash of the sources and the flags, so a change to either
 rebuilds. Nothing here runs at import: the first launch
 builds, and code on the CPU never reaches this module's build.
 
-Every launch goes through `launch`, which passes PyTorch's current stream,
+Every launch goes through `launch`, which runs the launcher on the CUDA
+device its tensor arguments lie on, with that device's current stream,
 raises when the launcher returns a CUDA error, and counts the launch under
-the kernel's name (`counts`, `reset_counts`). The library is loaded once,
-under a lock; after that a launch takes no lock: it looks its ctypes
-function up in a dict filled at load, reads the current stream's raw handle
+the kernel's name (`counts`, `reset_counts`). Tensors on two CUDA devices
+raise `ValueError`. Where the tensors' device is the current one, nothing
+is switched; otherwise it is made current for the call (a `<<<>>>` launch
+goes to the current device's context, whatever stream it is given) and
+the previous device is restored after. The library is loaded once, under
+a lock; after that a launch takes no lock: it looks its ctypes function up
+in a dict filled at load, reads the device's current raw stream handle
 (no `torch.cuda.Stream` object is built), and calls. A kernel that reports
 a bad input writes a flag word in pinned host memory mapped for the card
 (`launch_flagged`): the host zeroes the word, launches, waits for the
-current stream once and reads the word, with no device allocation, memset
-or copy back. The word is one per device, so a per-device lock holds those
-four steps together when threads launch on one device at once.
+stream once and reads the word, with no device allocation, memset or copy
+back. The word is one per device, so a per-device lock holds those four
+steps together when threads launch on one device at once.
 """
 
 from __future__ import annotations
@@ -145,15 +150,38 @@ def build() -> str:
     return so
 
 
-def _stream() -> int:
-    """The raw handle of the current CUDA device's current stream (what
-    torch.cuda.current_stream().cuda_stream gives, without the Stream
+def _stream(device: int) -> int:
+    """The raw handle of CUDA device `device`'s current stream (what
+    torch.cuda.current_stream(device).cuda_stream gives, without the Stream
     object; a torch.cuda.stream(...) context sets it)."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
-def _device() -> int:
-    return torch._C._cuda_getDevice()
+def _pointers(args) -> tuple[list, int]:
+    """args with every tensor replaced by its data pointer, and the index
+    of the CUDA device the tensors lie on (-1: none lies on one)."""
+    out, idx = [], -1
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            d = a.get_device()
+            if d != idx and d >= 0:
+                if idx >= 0:
+                    raise ValueError(f"kernel arguments on CUDA devices {idx} and {d}")
+                idx = d
+            out.append(a.data_ptr())
+        else:
+            out.append(a)
+    return out, idx
+
+
+def _switched(idx: int, call, *args):
+    """call(idx, *args) with CUDA device `idx` made current, the previous
+    device restored after."""
+    prev = torch._C._cuda_exchangeDevice(idx)
+    try:
+        return call(idx, *args)
+    finally:
+        torch._C._cuda_maybeExchangeDevice(prev)
 
 
 def _load() -> ctypes.CDLL:
@@ -174,19 +202,30 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(fn: str, *args) -> None:
-    """Run launcher `fn` on the current CUDA stream; count it; raise on error.
-
-    Tensor arguments pass their data pointers; the stream is appended."""
+def _call(device: int, fn: str, ptrs: list) -> None:
+    """Launcher `fn` on current device `device`'s current stream; counted."""
     entry = _fns.get(fn)
     if entry is None:
         _load()
         entry = _fns[fn]
     f, name = entry
-    rc = f(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], _stream())
+    rc = f(*ptrs, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
     _counts[name] += 1
+
+
+def launch(fn: str, *args) -> None:
+    """Run launcher `fn` on the current stream of the CUDA device its tensor
+    arguments lie on; count it; raise on error.
+
+    Tensor arguments pass their data pointers; the stream is appended."""
+    ptrs, idx = _pointers(args)
+    cur = torch._C._cuda_getDevice()
+    if idx < 0 or idx == cur:
+        _call(cur, fn, ptrs)
+    else:
+        _switched(idx, _call, fn, ptrs)
 
 
 def _flag(device: int) -> tuple:
@@ -206,16 +245,24 @@ def _flag(device: int) -> tuple:
 
 
 def launch_flagged(fn: str, *args) -> int:
-    """launch(fn, *args, flag) with the current device's mapped flag word,
-    zeroed first; waits for the current stream and returns the word (0
-    when the kernel found nothing to report). The word is one per device;
-    its lock keeps the zeroing, launch, wait and read of one call from
-    interleaving with another thread's on that device."""
-    word, dptr, lock = _flag(_device())
+    """launch(fn, *args, flag) with the mapped flag word of the tensors'
+    device, zeroed first; waits for that device's current stream and
+    returns the word (0 when the kernel found nothing to report). The word
+    is one per device; its lock keeps the zeroing, launch, wait and read of
+    one call from interleaving with another thread's on that device."""
+    ptrs, idx = _pointers(args)
+    cur = torch._C._cuda_getDevice()
+    if idx < 0 or idx == cur:
+        return _flagged(cur, fn, ptrs)
+    return _switched(idx, _flagged, fn, ptrs)
+
+
+def _flagged(device: int, fn: str, ptrs: list) -> int:
+    word, dptr, lock = _flag(device)
     with lock:
         word.value = 0
-        launch(fn, *args, dptr)
-        rc = _lib.tdc_stream_wait(_stream())
+        _call(device, fn, [*ptrs, dptr])
+        rc = _lib.tdc_stream_wait(_stream(device))
         if rc != 0:
             raise RuntimeError(f"{fn}: CUDA error {rc}")
         return word.value

@@ -13,7 +13,10 @@ crosses between the two packages.
 
 Each wrapper picks its route by the device of its inputs: CPU tensors go
 to the plain PyTorch version beside it, CUDA tensors to the kernel. Rows
-hold zeros past each block's count.
+hold zeros past each block's count. Both kernels keep one hash table a
+block in device memory: kernel E's keyed by a hash of the phrase's bytes
+and sized by what a block's trie can hold (`z_max`, `table_log2`), kernel
+F's keyed by (node, byte), of 2 (bs + 2) slots or more.
 
 `lz78_parse_blocks_device` and `lzw_parse_blocks_device` are the host
 helpers of the blockwise path: numpy blocks in, per-block numpy lists out,
@@ -35,6 +38,8 @@ __all__ = [
     "lzw_parse_blocks",
     "lzw_parse_blocks_device",
     "lzw_parse_blocks_plain",
+    "table_log2",
+    "z_max",
 ]
 
 MAX_BS = (1 << 24) - 512  # node ids, at most 256 + bs, fit the 24 bits of a dictionary key
@@ -54,8 +59,28 @@ def _check(blocks, n_valid) -> None:
 
 
 def _log2_slots(bs: int) -> int:
-    """The kernels' hash table: a power of two of at least 2 (bs + 2) slots."""
+    """Kernel F's hash table: a power of two of at least 2 (bs + 2) slots."""
     return (2 * (bs + 2) - 1).bit_length()
+
+
+def z_max(bs: int) -> int:
+    """The most nodes the LZ78 trie of a block of bs bytes can hold: the most
+    distinct non-empty strings whose lengths sum to at most bs, that is all
+    256 strings of one byte, then all 65,536 of two bytes, and so on (a
+    factor but the trailing one creates a node, and the nodes' strings are
+    distinct)."""
+    z, left, length, count = 0, bs, 1, 256
+    while left >= length:
+        k = min(count, left // length)
+        z, left, length, count = z + k, left - k * length, length + 1, count * 256
+    return z
+
+
+def table_log2(bs: int) -> int:
+    """log2 of kernel E's slots a block of bs bytes: the least power of two
+    (16 or more) that is at most 55% full at z_max(bs) + 1 entries."""
+    need = -(-20 * (z_max(bs) + 1) // 11)
+    return max(4, (need - 1).bit_length())
 
 
 def _compact(emit, width: int):
@@ -116,7 +141,7 @@ def lz78_parse_blocks(blocks, n_valid):
     nf = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0:
         return parents, chars, nf
-    log2 = _log2_slots(bs)
+    log2 = table_log2(bs)
     table = torch.full((B, 1 << log2), -1, dtype=torch.int64, device=dev)
     kernels.launch(
         "tdc_lz78_parse", blocks.contiguous(), bs, n_valid.to(torch.int32).contiguous(), B,
@@ -178,12 +203,12 @@ def lzw_parse_blocks(blocks, n_valid):
     return codes, nf
 
 
-def _batches(blocks: np.ndarray, n_valid: np.ndarray, dev: torch.device):
+def _batches(blocks: np.ndarray, n_valid: np.ndarray, dev: torch.device, log2_slots):
     """Slices of the blocks on `dev`, each small enough that the parse's
-    dictionaries (the kernels' hash tables, or the plain versions' child
-    tables on the CPU) stay within _SCRATCH_BYTES."""
+    dictionaries (the kernels' hash tables of 2^log2_slots(bs) slots, or the
+    plain versions' child tables on the CPU) stay within _SCRATCH_BYTES."""
     B, bs = blocks.shape
-    per_block = 8 << _log2_slots(bs) if dev.type == "cuda" else (bs + 257) * 1024
+    per_block = 8 << log2_slots(bs) if dev.type == "cuda" else (bs + 257) * 1024
     per = max(1, _SCRATCH_BYTES // per_block)
     for lo in range(0, B, per):
         yield (
@@ -203,7 +228,7 @@ def lz78_parse_blocks_device(blocks: np.ndarray, n_valid: np.ndarray, device) ->
     """Parse numpy blocks [B, bs] on `device` -> per block (parents uint32,
     chars uint8), equal to the host lz78_parse of each block."""
     out = []
-    for b, nv in _batches(blocks, n_valid, torch.device(device)):
+    for b, nv in _batches(blocks, n_valid, torch.device(device), table_log2):
         parents, chars, nf = lz78_parse_blocks(b, nv)
         nf, (par, chr_) = _to_host(nf, parents, chars)
         out.extend((par[i, :k].astype(np.uint32), chr_[i, :k]) for i, k in enumerate(nf))
@@ -214,7 +239,7 @@ def lzw_parse_blocks_device(blocks: np.ndarray, n_valid: np.ndarray, device) -> 
     """Parse numpy blocks [B, bs] on `device` -> per block its LZW codes
     (uint32), equal to the host lzw_parse of each block."""
     out = []
-    for b, nv in _batches(blocks, n_valid, torch.device(device)):
+    for b, nv in _batches(blocks, n_valid, torch.device(device), _log2_slots):
         codes, nf = lzw_parse_blocks(b, nv)
         nf, (got,) = _to_host(nf, codes)
         out.extend(got[i, :k].astype(np.uint32) for i, k in enumerate(nf))
