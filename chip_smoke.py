@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tudocomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns PARENT   # kernels D and H of PARENT's checkout and this one, in turns
+    python3 chip_smoke.py --dh ROOT        # kernels D and H of ROOT's checkout, one JSON line
 
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
@@ -15,14 +17,18 @@ line each:
                     helpers (g++) beside them;
   2. kernels        kernels A-D against their plain PyTorch versions on the
                     card, at the shapes of the Huffman path, held to exact
-                    equality (every stage is integer arithmetic);
+                    equality (every stage is integer arithmetic); D also on
+                    phase 3's input as 256 streams of 256 KiB (the CLI's
+                    block size), held to the input, with the largest count
+                    of synchronisation rounds at both shapes;
   3. roundtrip      a seeded 64 MiB input through
                     driver.compress / decompress("blockwise(encode(huff))",
                     device="cuda"); the container must equal, byte for byte,
                     the one the host path writes, and both decoders must
                     return the input; kernels A-D must have been launched;
-  4. timing         CUDA-event times of kernels A-D and their plain versions,
-                    and the end-to-end encode / decode rates of the roundtrip;
+  4. timing         CUDA-event times of kernels A-D and their plain versions
+                    (D at both of phase 2's shapes), and the end-to-end
+                    encode / decode rates of the roundtrip;
   5. shared         kernel G (Moffat phases 1-2, int64) against its plain
                     version, exactly, on the summed histogram of the 64 MiB
                     input, on phase 2's 69 histograms and on a row with
@@ -73,7 +79,8 @@ line each:
                     4-letter DNA-like text: the suffix array and its inverse
                     built on the card equal the C++ SA-IS and its inverse;
                     the LCP array of kernel H equals the host's and its plain
-                    version's; the device factorization equals the C++
+                    version's, also on four 256 KiB blocks (kernel H timed
+                    at both sizes); the device factorization equals the C++
                     factorizer's; each device stage timed, copies included,
                     against its host counterpart, and again at smaller sizes
                     (the numbers that set device.SA_MIN_N and LZSS_MIN_N) and
@@ -84,14 +91,21 @@ line each:
                     decompress(device="cuda"): each container equals the host
                     path's, both decoders return the input, kernel H launched
                     (TextDS takes its LCP from it where the card built the
-                    SA); the stages of the 16 MiB encode on the card and on
-                    the host.
+                    SA), its launches counted by the size of their text; the
+                    stages of the 16 MiB encode on the card and on the host.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
 its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
 failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
+
+--turns PARENT compares kernels D and H of two checkouts on one card: it
+runs this script with --dh in a process of its own for PARENT, this
+checkout, this checkout and PARENT, in that order. --dh ROOT builds ROOT's
+kernels and times D at both of phase 2's shapes, H on 16 MiB of English,
+16 MiB of DNA and a 256 KiB block, and phase 10's lcp_device stage on the
+two repetitive texts, each checked against the input or the host.
 """
 
 from __future__ import annotations
@@ -199,7 +213,7 @@ DEVICE_FNS = {
     "decode_payloads": ("decode_kernel",),
     "lz78_parse": ("lz78_kernel",),
     "lzw_parse": ("lzw_kernel",),
-    "plcp_segments": ("plcp_level_kernel",),
+    "plcp_segments": ("phi_kernel", "plcp_upper_kernel", "plcp_level_kernel"),
     "probe3_gather": ("gather_kernel",),
     "probe6_roll_lane": ("p6_roll_lane_kernel",),
     "probe6_roll_sublane": ("p6_roll_sublane_kernel",),
@@ -427,7 +441,9 @@ def device_time(fn, name, iters: int = 10) -> dict:
     run of profiler sessions in one process can drop events: with fewer
     events than calls the ms is the mean of the events seen, a call's time
     for a launcher of one kernel a call; for one of several (A, B, H) a
-    short count leaves the ms low."""
+    short count leaves the ms low. For a launcher of several kernels,
+    device_ms_by_kernel splits the ms by __global__ function (all of its
+    launches in a call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -439,16 +455,24 @@ def device_time(fn, name, iters: int = 10) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total, events = 0.0, 0
+    total, events, by_fn = 0.0, 0, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue
-        if fns is None or any(f"::{f}(" in e.key or e.key.startswith(f"{f}(") for f in fns):
-            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        hit = [f for f in fns or () if f"::{f}(" in e.key or e.key.startswith(f"{f}(")]
+        if fns is None or hit:
+            t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            total += t
             events += e.count
+            for f in hit:
+                by_fn[f] = by_fn.get(f, 0.0) + t
     if total <= 0:
         return {"device_ms": None, "device_events": events}
-    return {"device_ms": total / min(events, iters) / 1e3, "device_events": events}
+    calls = min(events, iters)
+    out = {"device_ms": total / calls / 1e3, "device_events": events}
+    if fns and len(fns) > 1:
+        out["device_ms_by_kernel"] = {f: by_fn.get(f, 0.0) / calls / 1e3 for f in fns}
+    return out
 
 
 def in_turns(kernel, library, **kw) -> dict:
@@ -500,6 +524,181 @@ def synced(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def rows_bytes(out, counts) -> bytes:
+    """The bytes of kernel D's arena: row i's first counts[i], joined."""
+    out = out.cpu().numpy()
+    return b"".join(out[i, :c].tobytes() for i, c in enumerate(counts.tolist()))
+
+
+def decode_inputs(raw: bytes, bs: int, dev):
+    """Kernel D's arguments for the streams of blockwise(encode(huff),bs=bs)
+    on `raw`: the container's payloads, their tables parsed on the host."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
+    from tudocomp_tpu_torch.parallel.blocks import unframe_streams
+    from tudocomp_tpu_torch.parallel.runtime import blockwise_huffman_compress
+
+    _, payloads = unframe_streams(blockwise_huffman_compress(raw, bs, dev))
+    parsed = [hd.parse_payload_tables(p) for p in payloads]
+    W = max(len(p[3]) for p in parsed)
+    words = np.zeros((len(parsed), W), np.uint32)
+    for i, p in enumerate(parsed):
+        words[i, : len(p[3])] = p[3]
+    return (
+        torch.from_numpy(words.view(np.int32)).to(dev),
+        torch.tensor([p[4] for p in parsed], dtype=torch.int32, device=dev),
+        torch.from_numpy(np.stack([p[0] for p in parsed])).to(dev),
+        torch.from_numpy(np.stack([p[1] for p in parsed])).to(dev),
+        torch.from_numpy(np.stack([p[2] for p in parsed])).to(dev),
+        bs,
+    )
+
+
+def decode_timing(hd, args) -> dict:
+    """Kernel D's wrapper ms (CUDA events), device ms (torch.profiler) and bound on args."""
+    def fn():
+        return hd.decode_payloads(*args)
+
+    return {"ms": cuda_ms(fn), **device_time(fn, "decode_payloads"), **bound("decode_payloads", args, fn())}
+
+
+def plcp_timing(plcp_torch, t, sa_d) -> dict:
+    """Kernel H's wrapper ms (CUDA events), its kernels' device ms and that of
+    every kernel the call runs (torch.profiler), and its bound."""
+    def fn():
+        return plcp_torch.plcp_device(t, sa_d)
+
+    return {"ms": cuda_ms(fn, max_iters=200), **device_time(fn, "plcp_segments"),
+            "call_device_ms": device_time(fn, None)["device_ms"], **bound("plcp_segments", (t, sa_d), fn())}
+
+
+def host_sa(text):
+    """The C++ SA-IS of a sentinel-terminated text."""
+    import numpy as np
+
+    from tudocomp_tpu_torch import native
+
+    sa = np.empty(len(text), np.int32)
+    if native.get_lib().tdc_sais(text, len(text), sa) != 0:
+        raise RuntimeError("tdc_sais failed")
+    return sa
+
+
+def host_plcp(text, sa):
+    """The C++ PLCP (tdc_plcp_from_phi) of a text and its SA."""
+    import numpy as np
+
+    from tudocomp_tpu_torch import native
+    from tudocomp_tpu_torch.ds import suffix_array as sa_mod
+
+    plcp = np.empty(len(text), np.int32)
+    native.get_lib().tdc_plcp_from_phi(text, len(text), sa_mod.phi_from_sa(sa), plcp)
+    return plcp
+
+
+def dh_phase(dev, gpu, package: str) -> dict:
+    """Kernels D and H alone, from the package first on sys.path: D on the
+    1024 x 16 KiB zipf(1.3) streams of phase 2 and the 256 x 256 KiB streams
+    of phase 3's input, each held to its input; H on the 16 MiB English and
+    DNA texts and a 256 KiB English block, each held to the host's PLCP;
+    and the lcp_device stage of phase 10's two repetitive 16 MiB texts (host
+    seconds, best of 3, the LCP held to the host's)."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch.ds import suffix_array as sa_mod
+    from tudocomp_tpu_torch.ds.suffix_array import suffix_array_device
+    from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
+    from tudocomp_tpu_torch.ops import plcp_torch
+
+    dec = {}
+    data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
+    for shape, raw, bs in (("1024 x 16 KiB", zipf_bytes(0, 16 * MIB).tobytes(), DEC_BS),
+                           ("256 x 256 KiB", data, BS)):
+        args = decode_inputs(raw, bs, dev)
+        if rows_bytes(*hd.decode_payloads(*args)) != raw:
+            raise AssertionError(f"kernel D did not return the input of the {shape} streams")
+        dec[shape] = decode_timing(hd, args)
+        del args
+    del data
+    english = english_bytes(LZSS_BYTES)
+    sentinel = np.zeros(1, np.uint8)
+    h = {}
+    for name, raw in (("16 MiB english", english), ("16 MiB dna", dna_bytes(LZSS_BYTES)),
+                      ("256 KiB english block", english[:BS])):
+        text = np.concatenate([raw, sentinel])
+        t = torch.from_numpy(text).to(dev)
+        sa_d = suffix_array_device(t)
+        if not np.array_equal(plcp_torch.plcp_device(t, sa_d).cpu().numpy(), host_plcp(text, sa_d.cpu().numpy())):
+            raise AssertionError(f"{name}: kernel H differs from the host's PLCP")
+        h[name] = plcp_timing(plcp_torch, t, sa_d)
+        del t, sa_d
+    stage = {}
+    for name, raw in (("a^n", np.full(LZSS_BYTES, 97, np.uint8)),
+                      ("period 1000", np.tile(english[:1000], LZSS_BYTES // 1000))):
+        text = np.concatenate([raw, sentinel])
+        sa = host_sa(text)
+        lcp = sa_mod.lcp_from_plcp(host_plcp(text, sa), sa)
+        t, sa_d = torch.from_numpy(text).to(dev), torch.from_numpy(sa).to(dev)
+        best = None
+        for _ in range(3):
+            got, sec = synced(lambda: plcp_torch.lcp_device(t, sa_d))
+            best = sec if best is None else min(best, sec)
+        if not np.array_equal(got.cpu().numpy(), lcp):
+            raise AssertionError(f"{name}: lcp_device differs from the host's LCP")
+        stage[name] = best
+        del t, sa_d, got
+    torch.cuda.empty_cache()
+    no_jax()
+    return {"phase": "kernels D and H", "package": package, "decode": dec, "plcp": h,
+            "lcp_device_stage_best_of_3_s": stage, "card": gpu}
+
+
+def dh_main(root: str) -> int:
+    """--dh ROOT: dh_phase with the package of the checkout at ROOT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    for var in (*GATES, "TDC_BLOCKWISE_PROCS"):
+        os.environ.pop(var, None)
+    from tudocomp_tpu_torch import kernels, native
+
+    if not kernels.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"the package came from {kernels.__file__}, not from {root}")
+    kernels.build()
+    if native.get_lib() is None:
+        raise RuntimeError("the C++ host helpers did not build (g++)")
+    emit(dh_phase(torch.device("cuda", 0), card(), root))
+    return 0
+
+
+def turns_main(parent: str) -> int:
+    """--turns PARENT: dh_phase of the checkout at PARENT and of this one in
+    turns (parent, this, this, parent), each in a process of its own."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    gpu = card()
+    for label, root in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--dh", root], capture_output=True, text=True)
+        if r.returncode != 0:
+            sys.stderr.write(r.stdout[-4000:] + r.stderr[-8000:])
+            raise RuntimeError(f"--dh {root} exited {r.returncode}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        line["turn"] = label
+        emit(line)
+    print(gpu)
+    return 0
 
 
 def main() -> int:
@@ -585,38 +784,31 @@ def main() -> int:
     errs["pack_bytes_blocks"] = max_abs_err(bc.pack_bytes_blocks(*b_args), bc.pack_bytes_blocks_plain(*b_args))
     cases["pack_bytes_blocks"] = (b_args, bc.pack_bytes_blocks, bc.pack_bytes_blocks_plain)
 
-    from tudocomp_tpu_torch.parallel.blocks import unframe_streams
-    from tudocomp_tpu_torch.parallel.runtime import blockwise_huffman_compress
-
     dec_raw = batch.reshape(-1)[: 16 * MIB].tobytes()
-    _, payloads = unframe_streams(blockwise_huffman_compress(dec_raw, DEC_BS, dev))
-    parsed = [hd.parse_payload_tables(p) for p in payloads]
-    W = max(len(p[3]) for p in parsed)
-    words = np.zeros((len(parsed), W), np.uint32)
-    for i, p in enumerate(parsed):
-        words[i, : len(p[3])] = p[3]
-    d_args = (
-        torch.from_numpy(words.view(np.int32)).to(dev),
-        torch.tensor([p[4] for p in parsed], dtype=torch.int32, device=dev),
-        torch.from_numpy(np.stack([p[0] for p in parsed])).to(dev),
-        torch.from_numpy(np.stack([p[1] for p in parsed])).to(dev),
-        torch.from_numpy(np.stack([p[2] for p in parsed])).to(dev),
-        DEC_BS,
-    )
+    d_args = decode_inputs(dec_raw, DEC_BS, dev)
     got = hd.decode_payloads(*d_args)
     errs["decode_payloads"] = max_abs_err(got, hd.decode_payloads_plain(*d_args))
-    if got[0].cpu().numpy().tobytes() != dec_raw:
-        raise AssertionError("kernel D did not return the 1024 streams' input")
     cases["decode_payloads"] = (d_args, hd.decode_payloads, hd.decode_payloads_plain)
+    # and the main path's streams: the roundtrip's input in blocks of 256 KiB
+    # (held to the input, not to the plain version, whose lockstep walk takes
+    # a step a code: ~262k steps)
+    data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
+    d_shapes = {"1024 x 16 KiB": (d_args, dec_raw), "256 x 256 KiB": (decode_inputs(data, BS, dev), data)}
+    d_rounds = {}
+    for shape, (args, raw) in d_shapes.items():
+        out, counts, rounds = hd.decode_payloads(*args, sync_rounds=True)
+        if rows_bytes(out, counts) != raw:
+            raise AssertionError(f"kernel D did not return the input of the {shape} streams")
+        d_rounds[shape] = int(rounds.max())
     torch.cuda.synchronize()
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions: {errs}")
-    emit({"phase": "kernels", "max_abs_err": errs, "tolerance": 0, "streams": len(payloads), "card": gpu})
+    emit({"phase": "kernels", "max_abs_err": errs, "tolerance": 0, "streams": d_args[0].shape[0],
+          "decode_max_sync_rounds": d_rounds, "card": gpu})
 
     # 3. roundtrip through the public entry points ----------------------------
     from tudocomp_tpu_torch.driver import compress, decompress
 
-    data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
     kernels.reset_counts()
     t0 = time.perf_counter()
     container = compress(ALGO, data, device="cuda")
@@ -655,6 +847,12 @@ def main() -> int:
             "plain_ms": cuda_ms(lambda: plain(*args), budget_ms=2000.0, max_iters=10),
             **bound(name, args, kernel(*args)),
         }
+    timing["decode_payloads"]["max_sync_rounds"] = max(d_rounds.values())
+    timing["decode_payloads"]["by_shape"] = {
+        shape: {**decode_timing(hd, args), "max_sync_rounds": d_rounds[shape]}
+        for shape, (args, _) in d_shapes.items()
+    }
+    del d_shapes
     t0 = time.perf_counter()
     container = compress(ALGO, data, device="cuda")
     torch.cuda.synchronize()
@@ -692,7 +890,9 @@ def main() -> int:
     for part in (probes_phase(dev, gpu), suffix_phase(text[:LZSS_BYTES], dev, gpu)):
         for table, new in zip((errs, timing, launches), part):
             table.update(new)
-    launches.update(lzss_roundtrip_phase(text[:LZSS_BYTES], dev, gpu))
+    launches_h = lzss_roundtrip_phase(text[:LZSS_BYTES], dev, gpu)
+    launches["plcp_segments"] = sum(launches_h.values())
+    timing["plcp_segments"]["launches_by_shape"] = launches_h
 
     print(gpu)
     emit({"kernels": [
@@ -1397,9 +1597,7 @@ def suffix_phase(english, dev, gpu):
         if e:
             raise AssertionError(f"{name}: kernel H differs from its plain version by {e}")
         err_h = max(err_h, e)
-        line = {"ms": cuda_ms(lambda: plcp_torch.plcp_device(t, sa_d), max_iters=5),
-                **device_time(lambda: plcp_torch.plcp_device(t, sa_d), "plcp_segments", iters=3),
-                "plain_ms": plain_ms, **bound("plcp_segments", (t, sa_d), plcp_k)}
+        line = {**plcp_timing(plcp_torch, t, sa_d), "plain_ms": plain_ms}
         line_h = line_h or line
         dev_st = got[4]
         report[name] = {
@@ -1415,6 +1613,24 @@ def suffix_phase(english, dev, gpu):
         torch.cuda.empty_cache()
     if launches_h == 0:
         raise AssertionError("kernel H never launched by lcp_device")
+    # kernel H at blockwise's shape: blocks of 256 KiB with their sentinel
+    from tudocomp_tpu_torch.ds.suffix_array import suffix_array_device
+
+    for k in range(4):
+        block = np.concatenate([english[k * BS : (k + 1) * BS], np.zeros(1, np.uint8)])
+        t = torch.from_numpy(block).to(dev)
+        sa_d = suffix_array_device(t)
+        got = plcp_torch.plcp_device(t, sa_d)
+        if not np.array_equal(got.cpu().numpy(), host_plcp(block, sa_d.cpu().numpy())):
+            raise AssertionError(f"256 KiB block {k}: kernel H differs from the host's PLCP")
+        if k == 0:
+            plcp_p, plain_ms = cuda_once(lambda: plcp_torch.plcp_device_plain(t, sa_d))
+            e = max_abs_err(got, plcp_p)
+            if e:
+                raise AssertionError(f"256 KiB block: kernel H differs from its plain version by {e}")
+            line_256 = {**plcp_timing(plcp_torch, t, sa_d), "plain_ms": plain_ms}
+    line_h["by_shape"] = {"16 MiB": {k: line_h[k] for k in ("ms", "device_ms", "device_events", "call_device_ms")},
+                          "256 KiB": line_256}
 
     # the gates' crossovers: prefixes of the English text, host against card
     sizes = {}
@@ -1447,8 +1663,8 @@ def suffix_phase(english, dev, gpu):
         repetitive[name] = {"n": len(text), "mean_lcp": float(lcp.mean()), "host_s": h, "device_s": got[4]}
     from tudocomp_tpu_torch import device as tdev
 
-    emit({"phase": "suffix stack", "texts": report, "crossover_english_prefix_best_of_3": sizes,
-          "repetitive": repetitive,
+    emit({"phase": "suffix stack", "texts": report, "kernel_H_256KiB_block": line_256,
+          "crossover_english_prefix_best_of_3": sizes, "repetitive": repetitive,
           "gates": {"SA_MIN_N": tdev.SA_MIN_N, "LZSS_MIN_N": tdev.LZSS_MIN_N}, "card": gpu})
     return {"plcp_segments": err_h}, {"plcp_segments": line_h}
 
@@ -1495,9 +1711,10 @@ def lzss_stages(data: bytes, device: str) -> dict:
     return st
 
 
-def lzss_roundtrip_phase(english, dev, gpu) -> None:
+def lzss_roundtrip_phase(english, dev, gpu) -> dict:
     """Phase 11: the lzss_lcp ids through the driver on the card against the
-    port's host path. Returns kernel H's launches in those encodes."""
+    port's host path. Returns kernel H's launches in those encodes, by the
+    size of its text (the whole 16 MiB, or a 256 KiB block)."""
     import torch
 
     from tudocomp_tpu_torch import device as tdev
@@ -1508,7 +1725,7 @@ def lzss_roundtrip_phase(english, dev, gpu) -> None:
     runs = [(LZSS_ALGO, "synth_english"), (LZSS_ALGO, "dna"),
             (f"blockwise({LZSS_ALGO},bs={BS})", "synth_english"),
             (f"blockwise({LZSS_ALGO},bs={BS},shared=1)", "synth_english")]
-    launches_h = 0
+    launches_h = {"16 MiB": 0, "256 KiB": 0}  # kernel H's launches by the size of its text
     for algo, which in runs:
         data = inputs[which]
         kernels.reset_counts()
@@ -1516,7 +1733,7 @@ def lzss_roundtrip_phase(english, dev, gpu) -> None:
         launched = kernels.counts()["plcp_segments"]
         if launched == 0:
             raise AssertionError(f"{algo} on {which}: kernel H never launched")
-        launches_h += launched
+        launches_h["256 KiB" if algo.startswith("blockwise") else "16 MiB"] += launched
         back, dec_s = synced(lambda: decompress(container, device="cuda"))
         if back != data:
             raise AssertionError(f"{algo} on {which}: device roundtrip differs from the input")
@@ -1545,9 +1762,15 @@ def lzss_roundtrip_phase(english, dev, gpu) -> None:
             host = lzss_stages(data, "cpu")
         stages[which] = {"card": lzss_stages(data, "cuda"), "host": host}
         torch.cuda.empty_cache()
-    emit({"phase": "lzss stages", "algo": LZSS_ALGO, "bytes": LZSS_BYTES, "stages": stages, "card": gpu})
-    return {"plcp_segments": launches_h}
+    emit({"phase": "lzss stages", "algo": LZSS_ALGO, "bytes": LZSS_BYTES, "stages": stages,
+          "kernel_H_launches_by_shape": launches_h, "card": gpu})
+    return launches_h
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--dh", "--turns"):
+        sys.exit((dh_main if sys.argv[1] == "--dh" else turns_main)(sys.argv[2]))
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

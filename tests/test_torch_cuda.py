@@ -21,6 +21,8 @@ from tudocomp_tpu_torch.ops import huffman_torch as ht
 from tudocomp_tpu_torch.ops import lz78_cuda as lc
 from tudocomp_tpu_torch.ops import table_kernels as tk
 
+from tests import torch_cases as tc
+
 pytestmark = pytest.mark.cuda
 
 
@@ -404,20 +406,77 @@ def test_suffix_stack_on_the_card(dev, name):
 
 @pytest.mark.parametrize("seg", [2, 3, 32, 1000])
 def test_kernel_h_levels(dev, seg):
-    """Kernel H gives the host's PLCP whatever its segment length, that is
+    """Kernel H gives the host's PLCP whatever its chain length, that is
     however many levels it runs in."""
-    from tudocomp_tpu_torch.ds import suffix_array as sa_mod
     from tudocomp_tpu_torch.ds.textds import TextDS
 
     for name in ("a^n", "twice"):
         text = np.frombuffer(_suffix_texts()[name][:30011] + b"\0", np.uint8).copy()
         ds = TextDS(text, device="cpu")
         sa, want = ds.require_sa(), ds.require_plcp()
-        phi = torch.from_numpy(sa_mod.phi_from_sa(sa)).to(dev)
-        plcp = torch.zeros(len(text), dtype=torch.int32, device=dev)
+        phi = torch.empty(len(text), dtype=torch.int32, device=dev)
+        plcp = torch.full((len(text),), -1, dtype=torch.int32, device=dev)  # every entry is written
         t = torch.from_numpy(text).to(dev)
-        kernels.launch("tdc_plcp_segments", t, phi, len(text), seg, plcp)
+        kernels.launch("tdc_plcp_segments", t, torch.from_numpy(sa).to(dev), len(text), seg, phi, plcp)
         assert np.array_equal(plcp.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("name", tc.PLCP_CASES)
+def test_kernel_h_cases(dev, name):
+    """Kernel H (phi on the card, the levels' chains) against the host's
+    PLCP and its plain version: n = 0, 1, 2, the sizes around its level
+    boundaries, one letter, a period of 1000, English and DNA; a text one
+    byte off an 8-byte bound is copied to one on it."""
+    from tudocomp_tpu_torch.ds.textds import TextDS
+    from tudocomp_tpu_torch.ops.plcp_torch import lcp_device, plcp_device, plcp_device_plain
+
+    text = tc.plcp_text(name)
+    if len(text):
+        ds = TextDS(text, device="cpu")
+        sa, want, lcp = ds.require_sa(), ds.require_plcp(), ds.require_lcp()
+    else:
+        sa = want = lcp = np.zeros(0, np.int32)
+    sa_d = torch.from_numpy(np.ascontiguousarray(sa, np.int32)).to(dev)
+    for t in (torch.from_numpy(text).to(dev),
+              torch.empty(len(text) + 1, dtype=torch.uint8, device=dev)[1:].copy_(torch.from_numpy(text))):
+        kernels.reset_counts()
+        got = plcp_device(t, sa_d)
+        torch.cuda.synchronize()
+        assert kernels.counts()["plcp_segments"] == (1 if len(text) else 0)
+        assert np.array_equal(got.cpu().numpy(), want)
+        assert np.array_equal(lcp_device(t, sa_d).cpu().numpy(), lcp)
+    assert torch.equal(got, plcp_device_plain(t, sa_d))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name", tc.DECODE_CASES)
+def test_decode_kernel_cases(dev, name, wide):
+    """Kernel D against its plain version (out and counts, also where the
+    wrapper raises: a code past 32 bits, a stream past max_out) on the
+    cases of tests/torch_cases.py; wide: the words padded to 16384 a row,
+    so the launch takes 1024 threads and chunks of 32 bits, which start
+    inside codes."""
+    case = tc.decode_case(name)
+    arrays = tc.stack_streams([case["stream"]], min_words=16384 if wide else 1)
+    args = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    n, W = args[0].shape
+    max_out = case["max_out"]
+    out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)
+    counts = torch.empty(n, dtype=torch.int64, device=dev)
+    rounds = torch.zeros(n, dtype=torch.int32, device=dev)
+    kernels.reset_counts()
+    kernels.launch("tdc_decode_payloads", args[0], W, *args[1:], n, out, max_out, counts, rounds)
+    torch.cuda.synchronize()
+    assert kernels.counts()["decode_payloads"] == 1
+    _equal((out, counts), hd.decode_payloads_plain(*args, max_out))
+    if name in ("identity", "all-8", "all-5", "tail-4"):  # one code length: no round
+        assert int(rounds[0]) == 0
+    if case["data"] is None:
+        with pytest.raises(ValueError):
+            hd.decode_payloads(*args, max_out)
+    else:
+        got, cnt = hd.decode_payloads(*args, max_out)
+        assert got[0, : int(cnt[0])].cpu().numpy().tobytes() == case["data"]
 
 
 @pytest.mark.parametrize(

@@ -132,3 +132,121 @@ def test_textds_device_hook(device_sa, monkeypatch):
     np.testing.assert_array_equal(ds.plcp(), plcp)
     np.testing.assert_array_equal(ds.lcp(), lcp)
     assert ds.sa().dtype == np.int32 and ds.isa().dtype == np.int32
+
+
+# ---- kernel H's schedule (csrc/plcp.cu), emulated lane by lane ------------------------------
+#
+# The CUDA kernel cannot run here. This emulation follows its schedule: phi
+# written from the SA (phi_kernel), the top level's positions from 0, then
+# each level's chains, one a lane, each starting from the value the level
+# above left at its first position, comparing 32 bytes in steps
+# (H_LOCAL_STEPS) before its warp helps (the card runs the levels above 0
+# a top position's subtree a block; a chain depends only on the level above
+# in its own subtree, so the order does not change the result). It is held
+# to the C++ tdc_plcp_from_phi and to plcp_device_plain on the texts of
+# tests/torch_cases.py, with the main path's chain lengths (seg 0) and with
+# fixed ones (more levels).
+
+from tests import torch_cases as tc  # noqa: E402
+
+H_TOP, H_SLOTS, H_MIN_CHAIN, H_MAX_CHAIN = 256, 132 * 2048, 4, 32  # csrc/plcp.cu
+H_LOCAL_STEPS = (8, 16, 8)  # bytes a lane compares a step before its warp helps
+
+
+def _positions(n, s):
+    return (n - 1 + s - 1) // s
+
+
+def kernel_h_levels(n: int, seg: int = 0):
+    """([(stride, chain), ...] finest first, top stride) as tdc_plcp_segments picks them."""
+    levels, s = [], 1
+    while _positions(n, s) > H_TOP and len(levels) < 64:
+        f = seg or min(max(_positions(n, s) // H_SLOTS, H_MIN_CHAIN), H_MAX_CHAIN)
+        levels.append((s, f))
+        s *= f
+    return levels, s
+
+
+def emulate_kernel_h(text, sa, seg: int = 0):
+    """(plcp [n] int64, helps): what tdc_plcp_segments writes, and how many
+    positions asked their warp for help."""
+    n = len(text)
+    t = np.concatenate([text, np.zeros(32, np.uint8)])
+    plcp = np.full(n, -1, np.int64)  # -1: not written yet
+    if n == 0:
+        return plcp, 0
+    phi = np.empty(n, np.int64)
+    phi[sa] = sa[np.arange(n) - 1]  # phi[sa[0]] = sa[n - 1]
+    plcp[n - 1] = 0
+
+    def match(a, b, width):
+        lim = n - max(a, b)
+        if lim <= 0:
+            return 0
+        neq = np.flatnonzero(t[a : a + width] != t[b : b + width])
+        return min(lim, int(neq[0]) if len(neq) else width)
+
+    def warp_match(a, b):
+        m = max(n - max(a, b), 0)
+        neq = np.flatnonzero(t[a : a + m] != t[b : b + m])
+        return int(neq[0]) if len(neq) else m
+
+    helps = 0
+    if n > 1:
+        levels, top = kernel_h_levels(n, seg)
+        for k in range(_positions(n, top)):
+            plcp[k * top] = warp_match(k * top, phi[k * top])
+        for stride, chain in reversed(levels):
+            count = _positions(n, stride)
+            for k0 in range(0, count, chain):  # one lane a chain
+                l = plcp[k0 * stride]
+                assert l >= 0, "a chain starts from a value the level above did not write"
+                for k in range(k0 + 1, min(k0 + chain, count)):
+                    i, p = k * stride, phi[k * stride]
+                    l = max(l - stride, 0)
+                    for width in H_LOCAL_STEPS:
+                        m = match(i + l, p + l, width)
+                        l += m
+                        if m < width:
+                            break
+                    else:
+                        helps += 1
+                        l += warp_match(i + l, p + l)
+                    assert plcp[i] == -1, "a position written twice"
+                    plcp[i] = l
+    assert (plcp >= 0).all(), "a position never written"
+    return plcp, helps
+
+
+_H_PLAIN = {}
+
+
+@pytest.mark.parametrize("seg", [0, 2, 3])
+@pytest.mark.parametrize("name", tc.PLCP_CASES)
+def test_kernel_h_schedule(name, seg):
+    text = tc.plcp_text(name)
+    if len(text):
+        sa, _, plcp, _ = _host(text)
+    else:
+        sa, plcp = np.zeros(0, np.int32), np.zeros(0, np.int32)
+    if name not in _H_PLAIN:
+        _H_PLAIN[name] = plcp_torch.plcp_device_plain(torch.from_numpy(text), torch.from_numpy(sa)).numpy()
+    np.testing.assert_array_equal(_H_PLAIN[name], plcp)
+    got, helps = emulate_kernel_h(text, sa, seg)
+    np.testing.assert_array_equal(got, plcp)
+    if name in ("a^n", "period 1000"):  # the bound is exact: no chain position re-walks its LCP
+        assert helps == 0
+
+
+@pytest.mark.parametrize("n", [1 << 18, 1 << 24])
+def test_kernel_h_levels_fill_the_card(n):
+    """At the main path's shapes (256 KiB blocks, a 16 MiB text, each with
+    its sentinel) every level's chains are at most 32 positions long, and a
+    level runs a chain a thread slot or a quarter of its positions as
+    chains; the top level starts at most 256 positions from 0."""
+    levels, top = kernel_h_levels(n + 1)
+    assert _positions(n + 1, top) <= H_TOP
+    for stride, chain in levels:
+        count = _positions(n + 1, stride)
+        assert chain <= H_MAX_CHAIN
+        assert -(-count // chain) >= min(H_SLOTS, count // H_MIN_CHAIN)

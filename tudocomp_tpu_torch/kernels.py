@@ -62,10 +62,10 @@ KERNELS = {
     ),
     "tdc_huffman_tables": ("huffman_tables", [_P, _I, _P, _P, _P, _P, _P, _P, _P]),
     "tdc_moffat_phase12": ("moffat_phase12", [_P, _P, _I, _P, _P]),
-    "tdc_decode_payloads": ("decode_payloads", [_P, _L, _P, _P, _P, _P, _I, _P, _L, _P, _P]),
+    "tdc_decode_payloads": ("decode_payloads", [_P, _L, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P]),
     "tdc_lz78_parse": ("lz78_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P, _P]),
     "tdc_lzw_parse": ("lzw_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P]),
-    "tdc_plcp_segments": ("plcp_segments", [_P, _P, _L, _I, _P, _P]),
+    "tdc_plcp_segments": ("plcp_segments", [_P, _P, _L, _I, _P, _P, _P]),
     # csrc/probes.cu
     "tdc_probe3_gather": ("probe3_gather", [_P, _P, _P, _I, _L, _L, _P, _P, _P]),
     "tdc_probe6_roll_lane": ("probe6_roll_lane", [_P, _P, _P]),

@@ -2,10 +2,12 @@
 
 `parse_payload_tables` reads a payload's header on the host (numpy) into
 the decision tables of the canonical first-match rule; `decode_payloads`
-(kernel D, csrc/decode.cu) decodes any number of streams at once, one
-thread per stream, writing bytes straight into an [n, max_out] arena. It
-replaces tudocomp_tpu/ops/huffman_decode_pallas.py's bit-serial lockstep
-kernel together with the pack kernel that compacted its output.
+(kernel D, csrc/decode.cu) decodes any number of streams at once, one CTA
+per stream and one thread per chunk of its bits (self-synchronising
+chunks through a shared-memory decode table), writing bytes straight into
+an [n, max_out] arena. It replaces
+tudocomp_tpu/ops/huffman_decode_pallas.py's bit-serial lockstep kernel
+together with the pack kernel that compacted its output.
 
 The rule, per stream (coders/huffman.py:246-254, HuffmanCoder.hpp:584-613):
 a code of length l with value acc is complete when acc >= fc[l]; its
@@ -131,31 +133,33 @@ def decode_payloads_plain(words, total_bits, fc, adj, syms, max_out: int):
     return out, cnt
 
 
-def decode_payloads(words, total_bits, fc, adj, syms, max_out: int):
+def decode_payloads(words, total_bits, fc, adj, syms, max_out: int, sync_rounds: bool = False):
     """Decode n streams: words [n, W] (u32 bit patterns in int32, symbol bits
     from bit 0), total_bits [n], fc / adj [n, 33] int32, syms [n, 256] uint8
     -> (out [n, max_out] uint8, counts [n] int64). Row i holds stream i's
     counts[i] bytes; a stream that decodes past max_out, or needs a code
-    longer than 32 bits, raises."""
+    longer than 32 bits, raises. With sync_rounds a third tensor follows:
+    the kernel's synchronisation rounds for each stream, [n] int32 (None on
+    the CPU, where the plain version runs)."""
     args = (words, total_bits, fc, adj, syms)
     if not on_cuda(*args):
         out, counts = decode_payloads_plain(*args, max_out)
         _check_counts(counts, max_out)
-        return out, counts
+        return (out, counts, None) if sync_rounds else (out, counts)
     n, W = words.shape
     dev = words.device
     out = torch.zeros((n, max_out), dtype=torch.uint8, device=dev)  # as the plain version's
     counts = torch.empty(n, dtype=torch.int64, device=dev)
-    if n == 0:
-        return out, counts
-    kernels.launch(
-        "tdc_decode_payloads",
-        words.to(torch.int32).contiguous(), W, total_bits.to(torch.int32).contiguous(),
-        fc.to(torch.int32).contiguous(), adj.to(torch.int32).contiguous(),
-        syms.to(torch.uint8).contiguous(), n, out, max_out, counts,
-    )
-    _check_counts(counts, max_out)
-    return out, counts
+    rounds = torch.zeros(n, dtype=torch.int32, device=dev) if sync_rounds else None
+    if n:
+        kernels.launch(
+            "tdc_decode_payloads",
+            words.to(torch.int32).contiguous(), W, total_bits.to(torch.int32).contiguous(),
+            fc.to(torch.int32).contiguous(), adj.to(torch.int32).contiguous(),
+            syms.to(torch.uint8).contiguous(), n, out, max_out, counts, rounds,
+        )
+        _check_counts(counts, max_out)
+    return (out, counts, rounds) if sync_rounds else (out, counts)
 
 
 def decode_payloads_batched(payloads: list, max_out: int, device) -> list:

@@ -1,8 +1,9 @@
 """Device PLCP: kernel H on the card, lockstep segment walks in plain torch.
 
 The port of tudocomp_tpu/ops/plcp_jax.py. `plcp_device` picks its route by
-the device of its input: CUDA tensors go to kernel H (csrc/plcp.cu, one
-warp per segment running the sequential algorithm, in levels), CPU tensors to
+the device of its input: CUDA tensors go to kernel H (csrc/plcp.cu: phi
+from the SA on the card, then one chain of positions per lane running the
+sequential algorithm, in levels; one launch a call), CPU tensors to
 `plcp_device_plain`, the JAX function's formulation in torch, described
 below. Kärkkäinen's phi-algorithm
 (reference ds/PLCPFromPhi.hpp:38-44) is sequential: plcp[i] starts at
@@ -35,9 +36,6 @@ from .bitpack_cuda import on_cuda
 
 __all__ = ["lcp_device", "lcp_from_plcp_device", "plcp_device", "plcp_device_plain"]
 
-KERNEL_SEG = 256  # positions per warp of kernel H, at each of its levels
-
-
 def _phi(sa: torch.Tensor) -> torch.Tensor:
     """phi[sa[i]] = sa[i-1]; phi[sa[0]] = sa[n-1] (PhiFromSA.hpp:37-45)."""
     phi = torch.empty_like(sa)
@@ -55,11 +53,15 @@ def plcp_device(text: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
     if text.dtype != torch.uint8 or text.dim() != 1 or sa.shape != text.shape:
         raise ValueError("expected a [n] uint8 text and its [n] suffix array")
     n = int(text.shape[0])
-    plcp = torch.zeros(n, dtype=torch.int32, device=text.device)
-    if n <= 1:
+    plcp = torch.empty(n, dtype=torch.int32, device=text.device)
+    if n == 0:
         return plcp
-    phi = _phi(sa.to(torch.int64)).to(torch.int32)
-    kernels.launch("tdc_plcp_segments", text.contiguous(), phi, n, KERNEL_SEG, plcp)
+    text = text.contiguous()
+    if text.data_ptr() % 8:  # the kernel reads the text as aligned 8-byte words
+        text = text.clone()
+    phi = torch.empty_like(plcp)  # scratch: the kernel writes phi from the SA
+    # chains 0: the kernel sizes each level's chains from its positions
+    kernels.launch("tdc_plcp_segments", text, sa.to(torch.int32).contiguous(), n, 0, phi, plcp)
     return plcp
 
 
