@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tudocomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns PARENT   # kernels D and H of PARENT's checkout and this one, in turns
-    python3 chip_smoke.py --dh ROOT        # kernels D and H of ROOT's checkout, one JSON line
+    python3 chip_smoke.py --turns PARENT   # kernels D, H, E, F and P7 of PARENT's checkout and this one, in turns
+    python3 chip_smoke.py --dh ROOT        # kernels D, H, E, F and P7 of ROOT's checkout, one JSON line
 
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
@@ -47,9 +47,13 @@ line each:
                     200), at [128, 8192], at an odd batch of 131 blocks, and
                     E on [4, 262144] of one letter (phrases up to 724 bytes)
                     and of uniform random bytes (its table near its worst
-                    load); E's wrapper and device ms at both main-path
-                    shapes, with the factors of the longest block (the
-                    longest chain of rounds) and the ms per factor;
+                    load), and F on phase 8's 4 MiB blocks (the host parse
+                    on all, the plain version on the first two blocks'
+                    first 64 KiB); E's wrapper and device ms at both
+                    main-path shapes, with the factors of the longest block
+                    (the longest chain of rounds) and the ms per factor;
+                    F's at [6400, 8192] and 4 MiB; both kernels' registers
+                    a thread, CTAs an SM and waves at [6400, 8192];
   7. lz78 roundtrip 50 MiB of bench.py's English stand-in through
                     blockwise(lz78(coder=bit)) (bs 256 KiB),
                     blockwise(lz78(coder=bit),bs=8192) and
@@ -58,9 +62,12 @@ line each:
                     must return the input; E and F must have been launched;
   8. lz78 timing    the device parse of phase 7's blocks against the host
                     parse of the same blocks, the stages of each lz78/lzw
-                    encode and decode, the end-to-end rates, and the encode
-                    at the parse gate's largest block and at four times it,
-                    with the device parse and with the host parse;
+                    encode and decode, the end-to-end rates, and the lz78
+                    and lzw encodes at blocks of 1, 2, 4 and 8 MiB, and of
+                    inputs of 1-128 blocks of 8 KiB to 8 MiB, with the
+                    device parse and with the host parse (the numbers that
+                    set the gate, device.use_parse_device), the containers
+                    equal;
   9. probes         every kernel of csrc/probes.cu against its plain version
                     on the card at the probe scripts' own shapes, exactly;
                     the gather also on random indices over whole rows and
@@ -74,7 +81,9 @@ line each:
                     gather's sector floor beside its bound) and, for the
                     gather and the two rolls, the one PyTorch call for the
                     same function (torch.gather, torch.roll) timed in
-                    turns; the launch path's host cost;
+                    turns; the pack kernel of probe 7 by level (wrapper,
+                    kernel and call device ms) with its wrapper's host
+                    parts; the launch path's host cost;
  10. suffix stack   16 MiB of the English stand-in and 16 MiB of a seeded
                     4-letter DNA-like text: the suffix array and its inverse
                     built on the card equal the C++ SA-IS and its inverse;
@@ -100,12 +109,15 @@ failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
 
---turns PARENT compares kernels D and H of two checkouts on one card: it
-runs this script with --dh in a process of its own for PARENT, this
-checkout, this checkout and PARENT, in that order. --dh ROOT builds ROOT's
-kernels and times D at both of phase 2's shapes, H on 16 MiB of English,
-16 MiB of DNA and a 256 KiB block, and phase 10's lcp_device stage on the
-two repetitive texts, each checked against the input or the host.
+--turns PARENT compares kernels D, H, E, F and P7 of two checkouts on one
+card: it runs this script with --dh in a process of its own for PARENT,
+this checkout, this checkout and PARENT, in that order. --dh ROOT builds
+ROOT's kernels and times D at both of phase 2's shapes, H on 16 MiB of
+English, 16 MiB of DNA and a 256 KiB block, phase 10's lcp_device stage on
+the two repetitive texts, F at [6400, 8192] of the English stand-in and in
+its blocks of 1 and 4 MiB, E at [6400, 8192] and [200, 262144], and P7 at
+each level on the probe's tokens, each checked against the input, the host
+or the plain version.
 """
 
 from __future__ import annotations
@@ -141,6 +153,13 @@ LZ78_ALGOS = {  # id -> (block size, the kernel of its parse)
 LZSS_BYTES = 16 * MIB  # BASELINE config 3's and BENCH_r05's lzss shapes
 LZSS_ALGO = "lzss_lcp(coder=huff)"
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
+LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
+LZW_PLAIN_PREFIX = 1 << 16  # bytes of those blocks the plain version steps through
+GATE_BS = (1 * MIB, 2 * MIB, 4 * MIB, 8 * MIB)  # phase 8's block sizes for the parse gate
+# phase 8's inputs of few blocks, (block size, blocks): where the card's
+# parallel blocks stop paying for its longer chain per block
+FEW_BLOCKS = ((8192, 1), (8192, 16), (8192, 128), (BS, 1), (BS, 2), (BS, 4), (BS, 8),
+              *((bs, n) for bs in GATE_BS for n in (1, 2)))
 HUFF_KERNELS = ("pack_blocks", "pack_bytes_blocks", "huffman_tables", "decode_payloads")
 SHARED_KERNELS = ("moffat_phase12", "pack_blocks", "pack_bytes_blocks", "decode_payloads")
 # the least time the card could take: bytes over the HBM3 rate and
@@ -374,7 +393,9 @@ def kernel_bytes(name: str, args, out) -> int:
     """Bytes the function must move: each input read once, each output
     written once. The pack kernels count their blocks' valid bytes and the
     32-bit words their bits fill, not the arenas' allocated size (kernel B's
-    is sized for 9 bits a byte, kernel A's for 32 bits a token)."""
+    is sized for 9 bits a byte, kernel A's for 32 bits a token). The parses'
+    hash tables are the implementation's scratch, not the function's: see
+    table_bytes."""
     import torch
 
     def filled(bits):  # bytes of the words that `bits` [B] fill
@@ -392,6 +413,21 @@ def kernel_bytes(name: str, args, out) -> int:
         rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * S.shape[1]
         return nbytes(idx) + nbytes(out) + 4 * int(torch.unique(idx.to(torch.int64) + rows).numel())
     return nbytes(args) + nbytes(out)
+
+
+def table_bytes(name: str, args, out) -> dict:
+    """The hash-table traffic of kernel E or F beside its bound, which does
+    not count it: the fill of ones the wrapper writes (8 B a slot, tables of
+    more than 2^BITMAP_LOG2 slots) and the slots the kernel writes, 8 B a
+    phrase."""
+    import torch
+
+    from tudocomp_tpu_torch.ops import lz78_cuda as lc
+
+    B, bs = args[0].shape
+    log2 = (lc.table_log2 if name == "lz78_parse" else lc.lzw_table_log2)(bs)
+    return {"table_fill_bytes": 8 * B << log2 if log2 > lc.BITMAP_LOG2 else 0,
+            "table_slot_bytes": 8 * int(out[-1].to(torch.int64).sum())}
 
 
 def bound(name: str, args, out) -> dict:
@@ -601,15 +637,18 @@ def host_plcp(text, sa):
 
 
 def dh_phase(dev, gpu, package: str) -> dict:
-    """Kernels D and H alone, from the package first on sys.path: D on the
-    1024 x 16 KiB zipf(1.3) streams of phase 2 and the 256 x 256 KiB streams
-    of phase 3's input, each held to its input; H on the 16 MiB English and
-    DNA texts and a 256 KiB English block, each held to the host's PLCP;
-    and the lcp_device stage of phase 10's two repetitive 16 MiB texts (host
-    seconds, best of 3, the LCP held to the host's)."""
+    """Kernels D, H, F and P7 alone, from the package first on sys.path: D
+    on the 1024 x 16 KiB zipf(1.3) streams of phase 2 and the 256 x 256 KiB
+    streams of phase 3's input, each held to its input; H on the 16 MiB
+    English and DNA texts and a 256 KiB English block, each held to the
+    host's PLCP; the lcp_device stage of phase 10's two repetitive 16 MiB
+    texts (host seconds, best of 3, the LCP held to the host's); F at
+    [6400, 8192] and in blocks of 1 and 4 MiB, E at [6400, 8192] and
+    [200, 262144] (parse_timing), and P7 at each level (p7_timing)."""
     import numpy as np
     import torch
 
+    from tudocomp_tpu_torch import probes
     from tudocomp_tpu_torch.ds import suffix_array as sa_mod
     from tudocomp_tpu_torch.ds.suffix_array import suffix_array_device
     from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
@@ -652,10 +691,44 @@ def dh_phase(dev, gpu, package: str) -> dict:
             raise AssertionError(f"{name}: lcp_device differs from the host's LCP")
         stage[name] = best
         del t, sa_d, got
+    del english
+    torch.cuda.empty_cache()
+    f = parse_timing(dev, "lzw_parse", (8192, MIB, LZW_BIG_BS))
+    e = parse_timing(dev, "lz78_parse", (8192, BS))
+    p7 = p7_timing(probes, *probes.probe7_inputs(dev))
     torch.cuda.empty_cache()
     no_jax()
-    return {"phase": "kernels D and H", "package": package, "decode": dec, "plcp": h,
-            "lcp_device_stage_best_of_3_s": stage, "card": gpu}
+    return {"phase": "kernels D, H, E, F and P7", "package": package, "decode": dec, "plcp": h,
+            "lcp_device_stage_best_of_3_s": stage, "lzw_parse": f, "lz78_parse": e, "probe7_pack": p7,
+            "card": gpu}
+
+
+def parse_timing(dev, kname: str, sizes) -> dict:
+    """Kernel E (kname lz78_parse) or F (lzw_parse) on the 50 MiB English
+    stand-in in blocks of each of `sizes`, held to the host parse on every
+    block: wrapper ms (CUDA events), device ms (torch.profiler), the
+    longest block's factors or codes and the µs a factor, by shape."""
+    import torch
+
+    from tudocomp_tpu_torch.parallel.blocks import split_blocks
+
+    kernel, _, host = _parse_fns(kname)
+    text = english_bytes(LZ78_BYTES).tobytes()
+    out = {}
+    for bs in sizes:
+        blocks, n_valid = split_blocks(text, bs)
+        b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
+        got = kernel(b, nv)
+        if not all(_same(g, host(blocks[i, : n_valid[i]])) for i, g in enumerate(_per_block(kname, got))):
+            raise AssertionError(f"{kname} differs from the host parse at {list(blocks.shape)}")
+        ms = cuda_ms(lambda: kernel(b, nv))
+        longest = int(got[-1].max())
+        out[f"[{len(blocks)}, {bs}]"] = {
+            "ms": ms, **device_time(lambda: kernel(b, nv), kname, iters=3 if bs <= BS else 1),
+            "longest_block_factors": longest, "us_per_factor": ms * 1e3 / longest}
+        del b, nv, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def dh_main(root: str) -> int:
@@ -1083,6 +1156,7 @@ def lz78_kernel_phase(text, dev, gpu):
     import numpy as np
     import torch
 
+    from tudocomp_tpu_torch.ops import lz78_cuda as lc
     from tudocomp_tpu_torch.parallel.blocks import split_blocks
 
     def batch(lo: int, B: int, bs: int):
@@ -1095,6 +1169,10 @@ def lz78_kernel_phase(text, dev, gpu):
     one_nv = np.array([BS, BS - 1, BS - 418, 1], np.int32)  # BS - 418: ends on a factor
     rand = np.random.default_rng(11).integers(0, 256, (4, BS)).astype(np.uint8)
     rand_nv = np.array([BS, BS - 1, BS - 2, BS - 3], np.int32)
+    # F at phase 8's 4 MiB blocks: all blocks against the host parse; the plain
+    # version (a step a byte, ~0.2 ms a step on the card) on the first two
+    # blocks' first LZW_PLAIN_PREFIX bytes, the kernel run again on those
+    big, big_nv = split_blocks(text.tobytes(), LZW_BIG_BS)
     cases = {
         "lz78 [128, 8192]": ("lz78_parse", *batch(0, 128, 8192)),
         "lz78 odd [131, 8192]": ("lz78_parse", odd, odd_nv),
@@ -1102,6 +1180,7 @@ def lz78_kernel_phase(text, dev, gpu):
         "lzw odd [131, 8192]": ("lzw_parse", odd, odd_nv),
         "lz78 one letter [4, 262144]": ("lz78_parse", one, one_nv),
         "lz78 random [4, 262144]": ("lz78_parse", rand, rand_nv),
+        f"lzw [{len(big)}, {LZW_BIG_BS}]": ("lzw_parse", big, big_nv),
     }
     line_case = {}
     for bs, kname in LZ78_ALGOS.values():
@@ -1118,8 +1197,13 @@ def lz78_kernel_phase(text, dev, gpu):
         got = kernel(b, nv)
         torch.cuda.empty_cache()  # the plain child table of 200 blocks of 256 KiB takes ~52 GiB
         k = min(PLAIN_BLOCKS, len(blocks)) if blocks.shape[1] == BS else len(blocks)
-        want, plain_ms = cuda_once(lambda: plain(b[:k], nv[:k]))
-        err = max_abs_err(tuple(g[:k] for g in got), want)
+        if blocks.shape[1] == LZW_BIG_BS:  # the plain version on a prefix of the first two blocks
+            k, pre = 2, nv[:2].clamp(max=LZW_PLAIN_PREFIX)
+            want, plain_ms = cuda_once(lambda: plain(b[:2], pre))
+            err = max_abs_err(kernel(b[:2], pre), want)
+        else:
+            want, plain_ms = cuda_once(lambda: plain(b[:k], nv[:k]))
+            err = max_abs_err(tuple(g[:k] for g in got), want)
         per_block = _per_block(kname, got)
         host_ok = all(_same(g, host(blocks[i, : n_valid[i]])) for i, g in enumerate(per_block))
         if err or not host_ok:
@@ -1131,23 +1215,40 @@ def lz78_kernel_phase(text, dev, gpu):
             if mid == 0:
                 raise AssertionError(f"{name}: no block ends inside a phrase")
         report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_blocks": k, "factors": int(got[-1].sum()),
+                        "longest_block_factors": int(got[-1].max()), "us_per_factor": ms * 1e3 / int(got[-1].max()),
                         "blocks_ending_mid_phrase": mid}
         errs[kname] = max(errs[kname], err)
         line = name == line_case[kname]
         e_main = kname == "lz78_parse" and (line or name == f"lz78 [{len(blocks)}, {BS}]")
-        dt = device_time(lambda: kernel(b, nv), kname, iters=3) if line or e_main else {}
+        big_f = blocks.shape[1] == LZW_BIG_BS
+        dt = device_time(lambda: kernel(b, nv), kname, iters=3) if line or e_main or big_f else {}
+        if big_f:
+            report[name].update({**dt, **bound(kname, (b, nv), got), **table_bytes(kname, (b, nv), got)})
         if e_main:
             longest = int(got[-1].max())  # the factors of the longest chain of rounds
             e_shapes[f"[{len(blocks)}, {blocks.shape[1]}]"] = {
                 "ms": ms, **dt, "plain_ms": plain_ms, "plain_blocks": k,
                 "longest_block_factors": longest, "ms_per_factor": ms / longest}
         if line:
-            timing[kname] = {"ms": ms, **dt, "plain_ms": plain_ms, **bound(kname, (b, nv), got)}
+            timing[kname] = {"ms": ms, **dt, "plain_ms": plain_ms, **bound(kname, (b, nv), got),
+                             **table_bytes(kname, (b, nv), got)}
         del b, nv, got, want
     timing["lz78_parse"]["by_shape"] = e_shapes
+    # registers a thread and CTAs an SM: how many of the 8 KiB main shape's
+    # warps (four a CTA) the card holds at once
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occupancy = {}
+    for kname in ("lz78_parse", "lzw_parse"):
+        occ = lc.parse_occupancy(kname == "lzw_parse", 8192)
+        B8 = len(cases[line_case["lzw_parse"]][1])
+        occ["waves_at_8KiB"] = -(-B8 // (occ["blocks_per_cta"] * occ["ctas_per_sm"] * sms))
+        occupancy[kname] = occ
+        timing[kname]["occupancy"] = occ
+    timing["lzw_parse"]["longest_block_factors"] = report[line_case["lzw_parse"]]["longest_block_factors"]
+    timing["lzw_parse"]["us_per_factor"] = report[line_case["lzw_parse"]]["us_per_factor"]
     torch.cuda.empty_cache()
     emit({"phase": "lz78 kernels", "max_abs_err": errs, "tolerance": 0, "cases": report,
-          "e_by_shape": e_shapes, "card": gpu})
+          "e_by_shape": e_shapes, "occupancy": occupancy, "sms": sms, "card": gpu})
     return errs, timing
 
 
@@ -1248,8 +1349,9 @@ def lz78_timing_phase(text, dev, gpu) -> None:
     """Phase 8: the device parse of the roundtrip's blocks (copies included)
     against the host parse of the same blocks, the stage breakdowns, warm
     end-to-end rates, and the encode with the device parse and with the
-    host parse at the parse gate's largest block (device.PARSE_MAX_BS) and
-    at four times that."""
+    host parse at blocks of 1, 2, 4 and 8 MiB (GATE_BS) and of inputs of
+    few blocks (FEW_BLOCKS), with what the gate picks for each: the numbers
+    that set device.PARSE_MAX_BS, PARSE_MIN_BLOCKS and PARSE_ONE_BLOCK_BS."""
     from tudocomp_tpu_torch import device as tdev
     from tudocomp_tpu_torch import kernels
     from tudocomp_tpu_torch.driver import compress, decompress
@@ -1281,27 +1383,45 @@ def lz78_timing_phase(text, dev, gpu) -> None:
         e2e[algo] = {"encode_s": enc_s, "encode_MBps": len(data) / enc_s / 1e6,
                      "decode_s": dec_s, "decode_MBps": len(data) / dec_s / 1e6}
         torch.cuda.empty_cache()
-    cap, gate = tdev.PARSE_MAX_BS, {}
-    tdev.PARSE_MAX_BS = 4 * cap  # lets TDC_DEVICE_LZ78=1 reach past the gate
+    cap, gate, wins, few = tdev.PARSE_MAX_BS, {}, {}, {}
+
+    def both(algo, piece, kind, repeats):
+        """Encode seconds with the device and the host parse, the least of
+        `repeats` turns each; the containers equal."""
+        out, secs = {}, {"1": [], "0": []}
+        for mode in ("1", "0") * repeats:  # device parse, host parse
+            os.environ["TDC_DEVICE_LZ78"] = mode
+            kernels.reset_counts()
+            out[mode], sec = synced(lambda: compress(algo, piece, device="cuda"))
+            secs[mode].append(sec)
+            if (kernels.counts()[f"{kind}_parse"] > 0) != (mode == "1"):
+                raise AssertionError(f"{algo}: TDC_DEVICE_LZ78={mode} took the other parse")
+        if out["1"] != out["0"]:
+            raise AssertionError(f"{algo} on {len(piece)} bytes: the device and host parses give different containers")
+        return min(secs["1"]), min(secs["0"])
+
+    tdev.PARSE_MAX_BS = max(cap, *GATE_BS)  # lets TDC_DEVICE_LZ78=1 reach past the gate
     try:
         for kind in ("lz78", "lzw"):
-            for bs in (cap, 4 * cap):
+            for bs in GATE_BS:
                 algo = f"blockwise({kind}(coder=bit),bs={bs})"
-                out = {}
-                for mode in ("1", "0"):  # device parse, host parse
-                    os.environ["TDC_DEVICE_LZ78"] = mode
-                    kernels.reset_counts()
-                    out[mode], gate[f"{algo}, TDC_DEVICE_LZ78={mode}, encode_s"] = synced(
-                        lambda: compress(algo, data, device="cuda"))
-                    if (kernels.counts()[f"{kind}_parse"] > 0) != (mode == "1"):
-                        raise AssertionError(f"{algo}: TDC_DEVICE_LZ78={mode} took the other parse")
-                if out["1"] != out["0"]:
-                    raise AssertionError(f"{algo}: the device and host parses give different containers")
+                d, h = both(algo, data, kind, 1)
+                gate[f"{algo}, TDC_DEVICE_LZ78=1, encode_s"] = d
+                gate[f"{algo}, TDC_DEVICE_LZ78=0, encode_s"] = h
+                wins[f"{kind} {bs // MIB} MiB"] = d < h
+            for bs, n in FEW_BLOCKS:
+                algo = f"blockwise({kind}(coder=bit),bs={bs})"
+                d, h = both(algo, data[: n * bs], kind, 3 if n * bs < MIB else 2)
+                few[f"{kind} {n} x {bs}"] = {"device_s": d, "host_s": h, "device_faster": d < h}
     finally:
         tdev.PARSE_MAX_BS = cap
         os.environ.pop("TDC_DEVICE_LZ78", None)
+    for kind in ("lz78", "lzw"):  # what the gate picks, TDC_DEVICE_LZ78 unset
+        for bs, n in FEW_BLOCKS:
+            few[f"{kind} {n} x {bs}"]["gate_takes_device"] = tdev.use_parse_device(bs, n, dev)
     emit({"phase": "lz78 timing", "parse": shapes, "stages": stages, "end_to_end": e2e,
-          "gate": gate, "card": gpu})
+          "gate": gate, "device_parse_wins": wins, "few_blocks": few, "parse_max_bs": cap,
+          "parse_min_blocks": tdev.PARSE_MIN_BLOCKS, "parse_one_block_bs": tdev.PARSE_ONE_BLOCK_BS, "card": gpu})
 
 
 def gather_floors(S, idx) -> dict:
@@ -1325,6 +1445,66 @@ def gather_body_ms(S, idx) -> float:
     flag = kernels._flag(S.get_device())[1]
     return cuda_ms(lambda: kernels.launch("tdc_probe3_gather", S, idx, out, S.shape[0], S.shape[1],
                                           idx.shape[1], None, flag), max_iters=200)
+
+
+def p7_timing(probes, vals, nbits) -> dict:
+    """Kernel P7 at each level on the probe's tokens: held to its plain
+    version (mid included), then, called as the entry point calls it (no
+    mid), its wrapper ms (CUDA events), the kernel's device ms and the
+    call's (every kernel it runs), from torch.profiler."""
+    out = {}
+    for lv in (1, 2, 3, 4, 5):
+        def fn(lv=lv):
+            return probes.pack_levels(vals, nbits, probes.P7_NWP, lv)
+
+        got = tuple(t for t in probes.pack_levels(vals, nbits, probes.P7_NWP, lv, want_mid=True) if t is not None)
+        want = tuple(t for t in probes.pack_levels_plain(vals, nbits, probes.P7_NWP, lv, want_mid=True)
+                     if t is not None)
+        if max_abs_err(got, want):
+            raise AssertionError(f"probe7 level {lv} differs from its plain version")
+        out[f"level {lv}"] = {"ms": cuda_ms(fn, max_iters=200), **device_time(fn, "probe7_pack", iters=20),
+                              "call_device_ms": device_time(fn, None, iters=20)["device_ms"]}
+    return out
+
+
+def p7_host_split(vals, nbits) -> dict:
+    """Host microseconds of the parts of a level-5 pack_levels call: the
+    whole wrapper (it waits for the card), its checks, its allocations, the
+    flagged launch (flag zeroed, kernel queued, stream wait, flag read), the
+    launch alone and the stream wait alone."""
+    import torch
+
+    from tudocomp_tpu_torch import kernels, probes
+    from tudocomp_tpu_torch.ops.bitpack_cuda import on_cuda
+
+    B, NT = nbits.shape
+    n_wp = probes.P7_NWP
+
+    def alloc():
+        return (torch.empty((B, 1, n_wp), dtype=torch.int32, device=vals.device),
+                torch.empty((B, 1, 1), dtype=torch.int32, device=vals.device))
+
+    args = (vals, nbits, B, NT, n_wp, *alloc(), 5, None)
+    flag = kernels._flag(vals.get_device())[1]
+    wait = kernels.helper("tdc_stream_wait")
+
+    def checks():
+        on_cuda(vals, nbits)
+        probes._check_tokens(vals, nbits)
+        return vals.dtype == torch.int32 and vals.is_contiguous() and nbits.dtype == torch.int32 \
+            and nbits.is_contiguous()
+
+    return {
+        "probes.pack_levels(level 5), waits for the card": host_us(
+            lambda: probes.pack_levels(vals, nbits, n_wp, 5), 500),
+        "checks: on_cuda, _check_tokens, dtype and layout": host_us(checks),
+        "allocation: two torch.empty": host_us(alloc),
+        "kernels.launch_flagged: flag zeroed, launch, stream wait, flag read": host_us(
+            lambda: kernels.launch_flagged("tdc_probe7_pack", *args), 500),
+        "kernels.launch alone: the kernel queued, no wait": host_us(
+            lambda: kernels.launch("tdc_probe7_pack", *args, flag)),
+        "tdc_stream_wait on an idle stream": host_us(lambda: wait(kernels._stream(vals.get_device()))),
+    }
 
 
 def probes_phase(dev, gpu):
@@ -1481,8 +1661,8 @@ def probes_phase(dev, gpu):
         },
     }
     del S_off
-    p7_levels = {f"level {lv}": cuda_ms(lambda: probes.pack_levels(vals7, nbits7, probes.P7_NWP, lv))
-                 for lv in (1, 2, 3, 4, 5)}
+    p7_levels = p7_timing(probes, vals7, nbits7)
+    p7_host = p7_host_split(vals7, nbits7)
     out8 = torch.empty_like(x8)
     launch_path = {
         "stream_handle_us": {
@@ -1506,7 +1686,7 @@ def probes_phase(dev, gpu):
     emit({"phase": "probes", "max_abs_err": errs, "tolerance": 0, "launches": launches, "kernels": timing,
           "gather_cases": arms_by_case, "gather_direct_probe_shape": direct,
           "gather_sorted_by_arm": sorted_arms, "launch_path": launch_path,
-          "probe7_levels_ms": p7_levels, "gather_shape": [list(S.shape), list(idx.shape)], "card": gpu})
+          "probe7_levels": p7_levels, "probe7_host_us": p7_host, "gather_shape": [list(S.shape), list(idx.shape)], "card": gpu})
     return errs, timing, launches
 
 

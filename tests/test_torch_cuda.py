@@ -191,6 +191,39 @@ def test_lzw_parse_kernel(dev):
     _equal(got, lc.lzw_parse_blocks_plain(blocks, n_valid))
 
 
+@pytest.mark.parametrize("case", tc.LZW_CASES)
+def test_lzw_parse_kernel_cases(dev, case):
+    """Kernel F on the edge cases of its CPU emulation (tests/test_torch_lzw.py)
+    against its plain version and the host parse; then launched on the least
+    power of two of slots above the entries (long probe runs, wrap-around,
+    the occupancy bitmap) and on a filled table too large for a bitmap."""
+    from tudocomp_tpu_torch.compressors.lzw import lzw_parse
+
+    blocks, n_valid = tc.lzw_case(case)
+    b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
+    kernels.reset_counts()
+    got = lc.lzw_parse_blocks(b, nv)
+    torch.cuda.synchronize()
+    assert kernels.counts()["lzw_parse"] == 1
+    _equal(got, lc.lzw_parse_blocks_plain(b, nv))
+    want = [lzw_parse(blocks[i, : n_valid[i]]) for i in range(len(blocks))]
+    for i, (g, w) in enumerate(zip(_equal_rows(got[0], got[1]), want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"block {i}")
+    B, bs = blocks.shape
+    for log2 in (max(4, max(len(w) for w in want).bit_length()), lc.BITMAP_LOG2 + 1):
+        table = torch.full((B, 1 << log2), -1, dtype=torch.int64, device=dev)  # filled: read where no bitmap
+        codes = torch.zeros((B, bs), dtype=torch.int32, device=dev)
+        nf = torch.zeros(B, dtype=torch.int32, device=dev)
+        kernels.launch("tdc_lzw_parse", b, bs, nv, B, table, log2, codes, nf)
+        for i, (g, w) in enumerate(zip(_equal_rows(codes, nf), want)):
+            np.testing.assert_array_equal(g, w, err_msg=f"block {i}, 2^{log2} slots")
+
+
+def _equal_rows(codes, nf):
+    codes, nf = codes.cpu().numpy(), nf.cpu().numpy()
+    return [codes[i, : nf[i]].astype(np.uint32) for i in range(len(nf))]
+
+
 @pytest.mark.parametrize("algo", ["blockwise(lz78(coder=bit),bs=4096)", "blockwise(lzw(coder=bit),bs=4096)"])
 def test_lz78_roundtrip_on_the_card(dev, algo, monkeypatch):
     monkeypatch.delenv("TDC_DEVICE_LZ78", raising=False)
@@ -334,6 +367,30 @@ def test_probe7_pack_kernel(dev, level):
             _equal((words[:, 0], bits[:, 0, 0]), (a_words, a_bits))
     with pytest.raises(ValueError):
         probes.pack_levels(vals, nbits + 1, probes.P7_NWP, level)
+
+
+@pytest.mark.parametrize("widths", tc.P7_WIDTHS)
+@pytest.mark.parametrize("nt", [1024, 3072, 5120])
+def test_probe7_pack_kernel_tiles(dev, nt, widths):
+    """The tile-parallel pack at every level against its plain version, mid
+    included: widths 0, 32 and a mix whose row 0 shares a boundary word
+    between every two tiles; level 5 also on an arena that drops bits, and
+    against kernel A."""
+    from tudocomp_tpu_torch import probes
+
+    vals, nbits = tc.p7_tokens(nt, widths, seed=nt)
+    v, nb = torch.from_numpy(vals.view(np.int32)).to(dev), torch.from_numpy(nbits).to(dev)
+    for n_wp in (nt + 32, nt // 3):
+        for level in (1, 2, 3, 4, 5) if n_wp > nt else (5,):
+            kernels.reset_counts()
+            got = probes.pack_levels(v, nb, n_wp, level, want_mid=True)
+            assert kernels.counts()["probe7_pack"] == 1
+            want = probes.pack_levels_plain(v, nb, n_wp, level, want_mid=True)
+            _equal(got[:2], want[:2])
+            if want[2] is not None:
+                _equal(got[2:], want[2:])
+        a_words, a_bits = bc.pack_blocks(v, nb, n_wp)
+        _equal((got[0][:, 0], got[1][:, 0, 0]), (a_words, a_bits))
 
 
 def test_probe8_kernels(dev):

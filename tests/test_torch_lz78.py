@@ -25,7 +25,7 @@ from tudocomp_tpu.ops.lz78_pallas import lzw_parse_blocks_device as jax_lzw_bloc
 from tudocomp_tpu_torch import __main__ as cli
 from tudocomp_tpu_torch.compressors import lz78 as port_lz78
 from tudocomp_tpu_torch.compressors import lzw as port_lzw
-from tudocomp_tpu_torch.device import PARSE_MAX_BS, use_parse_device
+from tudocomp_tpu_torch.device import PARSE_MAX_BS, PARSE_MIN_BLOCKS, PARSE_ONE_BLOCK_BS, use_parse_device
 from tudocomp_tpu_torch.driver import compress, decompress
 from tudocomp_tpu_torch.ops import lz78_cuda as lc
 
@@ -154,16 +154,19 @@ def test_kernel_e_table_holds_every_parse(bs):
 
 
 def test_parse_gate(monkeypatch):
-    """The one host routing of the device parse is the size gate."""
+    """The host routings of the device parse are the size gate and, with
+    TDC_DEVICE_LZ78 unset, the block count."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")  # no card needed to name one
     monkeypatch.delenv("TDC_DEVICE_LZ78", raising=False)
-    cap = PARSE_MAX_BS
-    assert use_parse_device(cap, cuda) and not use_parse_device(cap + 1, cuda)
-    assert not use_parse_device(cap, cpu)
+    cap, few, alone = PARSE_MAX_BS, PARSE_MIN_BLOCKS, PARSE_ONE_BLOCK_BS
+    assert use_parse_device(cap, few, cuda) and not use_parse_device(cap + 1, few, cuda)
+    assert use_parse_device(8192, few, cuda) and not use_parse_device(8192, few - 1, cuda)
+    assert use_parse_device(alone, 1, cuda) and not use_parse_device(alone - 1, 1, cuda)
+    assert not use_parse_device(cap, few, cpu)
     monkeypatch.setenv("TDC_DEVICE_LZ78", "1")
-    assert use_parse_device(cap, cpu) and not use_parse_device(cap + 1, cpu)
+    assert use_parse_device(cap, 1, cpu) and not use_parse_device(cap + 1, few, cpu)
     monkeypatch.setenv("TDC_DEVICE_LZ78", "0")
-    assert not use_parse_device(1024, cuda)
+    assert not use_parse_device(1024, few, cuda)
 
     calls = []
     real = port_lzw.lzw_parse_blocks_device

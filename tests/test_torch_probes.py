@@ -23,6 +23,8 @@ from jax.experimental.pallas import tpu as pltpu
 from tudocomp_tpu_torch import probes
 from tudocomp_tpu_torch.ops.bitpack import pack_tokens
 
+from tests import torch_cases as tc
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -324,6 +326,169 @@ def test_probe7_rejects_bad_tokens():
         probes.pack_levels(_t(vals.astype(np.int32)), _t(bad), probes.P7_NWP, 5)
     with pytest.raises(ValueError):
         probes.pack_levels(_t(vals[:, :100].astype(np.int32)), _t(nbits[:, :100].copy()), probes.P7_NWP, 5)
+
+
+@pytest.mark.parametrize("tiles", [probes.P7_MAX_TILES, probes.P7_MAX_TILES + 1])
+def test_probe7_tile_cap(tiles):
+    """pack_levels takes rows of up to P7_MAX_TILES tiles (the kernel's
+    re-sum of earlier widths grows with the square of the tiles) and
+    raises past them, before it packs anything."""
+    nt = tiles * probes.TILE
+    nbits = np.full((1, nt), 32, np.int32)
+    vals = np.arange(nt, dtype=np.int32)[None]
+    n_wp = nt + 128
+    if tiles > probes.P7_MAX_TILES:
+        with pytest.raises(ValueError, match="tiles a row"):
+            probes.pack_levels(_t(vals), _t(nbits), n_wp, 5)
+        return
+    words, bits = probes.pack_levels(_t(vals), _t(nbits), n_wp, 5)
+    assert int(bits) == 32 * nt
+    np.testing.assert_array_equal(words.numpy()[0, 0, :nt], vals[0])
+    assert not words.numpy()[0, 0, nt:].any()
+
+
+# Kernel P7's schedule (csrc/probes.cu:p7_pack_kernel), emulated CTA by CTA:
+# one CTA a (row, tile), the tiles taken last first so that none can lean on
+# another; each sums the widths before its tile itself; nothing zeroes the
+# arena first (it starts as garbage): levels 1-4 write zeros, each CTA its
+# share; at level 5 a word that a tile boundary cuts belongs to the last
+# tile starting inside it, which ORs in the bits of the tokens before it
+# (walked back 32 at a time), and the last tile zeroes the words past the
+# row's bits. The emulation checks that every word is stored exactly once.
+
+
+def _parts(v, nb, off):
+    """(hi, lo) of tokens of width nb at bit offset off, as uint64 arrays."""
+    vm = v.astype(np.uint64) & ((np.uint64(1) << nb.astype(np.uint64)) - np.uint64(1))
+    sh_end = (off & 31) + nb
+    hi = np.where(sh_end <= 32, vm << np.clip(32 - sh_end, 0, 63).astype(np.uint64),
+                  vm >> np.clip(sh_end - 32, 0, 63).astype(np.uint64))
+    lo = np.where(sh_end > 32, vm << np.clip(64 - sh_end, 0, 63).astype(np.uint64), 0)
+    return np.where(nb > 0, hi & 0xFFFFFFFF, 0).astype(np.uint64), np.where(nb > 0, lo & 0xFFFFFFFF, 0).astype(np.uint64)
+
+
+def emulate_p7(vals, nbits, n_wp, level):
+    """(words [B, n_wp] uint32, bits [B], mid, boundary) by the kernel's
+    schedule; boundary: the words whose owner gathered earlier tiles' bits."""
+    B, NT = nbits.shape
+    T, TW = NT // 1024, probes.TILE_WIN
+    nbw = np.where((nbits < 0) | (nbits > 32), 0, nbits).astype(np.int64)
+    words = np.random.default_rng(1).integers(0, 1 << 32, (B, n_wp), dtype=np.uint64).astype(np.uint32)
+    stores = np.zeros((B, n_wp), np.int64)
+    bits = np.zeros(B, np.int64)
+    mid = {2: np.zeros((B, NT, 2), np.uint32), 3: np.zeros((B, NT, 2), np.uint32),
+           4: np.zeros((B, T, TW), np.uint32)}.get(level)
+    boundary = 0
+
+    def store(b, w, x):
+        words[b, w] = np.uint32(x)
+        stores[b, w] += 1
+
+    for b in range(B):
+        for t in reversed(range(T)):
+            sl = slice(t * 1024, (t + 1) * 1024)
+            if level < 5:
+                for w in range(n_wp * t // T, n_wp * (t + 1) // T):
+                    store(b, w, 0)
+            c0 = int(nbw[b, : t * 1024].reshape(-1, 4).sum())  # the re-sum, four widths a load
+            nb = nbw[b, sl]
+            incl = np.cumsum(nb)
+            off, tile_bits = c0 + incl - nb, int(incl[-1])
+            if t == T - 1:
+                bits[b] = c0 + tile_bits
+            if level == 1:
+                continue
+            hi, lo = _parts(vals[b, sl], nb, off)
+            w0 = off >> 5
+            if level == 2:
+                mid[b, sl] = np.stack([hi, lo], 1)
+                continue
+            lane = np.arange(1024) % 32
+            last = np.ones(1024, bool)
+            last[:-1] = (w0[1:] != w0[:-1]) | (lane[1:] == 0)
+            hi_c, acc = np.zeros(1024, np.uint64), np.uint64(0)
+            for k in range(1024):  # the segmented XOR scan, runs within a warp
+                acc = hi[k] if lane[k] == 0 or w0[k] != w0[k - 1] else acc ^ hi[k]
+                hi_c[k] = acc if last[k] else 0
+            lo_c = np.where(last, lo, 0).astype(np.uint64)
+            if level == 3:
+                mid[b, sl] = np.stack([hi_c, lo_c], 1)
+                continue
+            abase = ((c0 >> 5) >> 7) << 7
+            win = np.zeros(TW, np.uint64)
+            np.bitwise_xor.at(win, w0 - abase, hi_c)
+            np.bitwise_xor.at(win, w0 + 1 - abase, lo_c)
+            if level == 4:
+                mid[b, t] = win
+                continue
+            end, w_first = c0 + tile_bits, c0 >> 5
+            w_last = ((end + 31) >> 5) - 1 if t == T - 1 else (end >> 5) - 1
+            earlier = 0
+            if c0 & 31 and w_first <= w_last:  # warp 0 walks back, 32 tokens at a time
+                boundary += 1
+                k, after = t * 1024, 0
+                while True:
+                    cnb = nbw[b, k - 32 : k]
+                    suffix = np.cumsum(cnb[::-1])[::-1]
+                    tok_end = c0 - after - (suffix - cnb)
+                    phi, plo = _parts(vals[b, k - 32 : k], cnb, tok_end - cnb)
+                    tw = (tok_end - cnb) >> 5
+                    reach = (cnb > 0) & (tok_end > 32 * w_first)
+                    for j in np.nonzero(reach)[0]:
+                        earlier |= int(phi[j]) if tw[j] == w_first else 0
+                        earlier |= int(plo[j]) if tw[j] + 1 == w_first else 0
+                    after += int(suffix[0])
+                    k -= 32
+                    if after >= (c0 & 31) or k == 0:
+                        break
+            for w in range(w_first, min(w_last, n_wp - 1) + 1):
+                store(b, w, int(win[w - abase]) | (earlier if w == w_first else 0))
+            if t == T - 1:
+                for w in range((end + 31) >> 5, n_wp):
+                    store(b, w, 0)
+    assert (stores == 1).all(), np.argwhere(stores != 1)[:5]
+    return words, bits, mid, boundary
+
+
+@pytest.mark.parametrize("widths", tc.P7_WIDTHS)
+@pytest.mark.parametrize("nt", [1024, 3072, 5120])
+def test_probe7_tile_schedule(nt, widths):
+    """The emulated schedule against pack_levels_plain at every level, mid
+    included, and at level 5 also on an arena that drops bits; the mixed
+    widths share a boundary word between every two tiles of row 0, the
+    sparse ones put several tiles inside one word."""
+    vals, nbits = tc.p7_tokens(nt, widths, seed=nt)
+    v, nb = _t(vals.view(np.int32)), _t(nbits)
+    for n_wp in (nt + 32, nt // 3):
+        for level in (1, 2, 3, 4, 5) if n_wp > nt else (5,):
+            words, bits, mid, boundary = emulate_p7(vals, nbits, n_wp, level)
+            want = probes.pack_levels_plain(v, nb, n_wp, level, want_mid=True)
+            np.testing.assert_array_equal(words, _u32(want[0].numpy())[:, 0], err_msg=f"level {level}")
+            np.testing.assert_array_equal(bits, want[1].numpy().ravel())
+            if want[2] is not None:
+                np.testing.assert_array_equal(mid, _u32(want[2].numpy()), err_msg=f"level {level}")
+            if level == 5 and n_wp > nt:
+                tiles = nt // 1024
+                assert boundary >= {"mix": tiles - 1, "sparse": min(1, tiles - 1)}.get(widths, 0)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5])
+def test_probe7_tile_schedule_matches_pallas(level):
+    """The emulated schedule against etc/probe7.py's levels on the script's
+    tokens (thinned at level 5, ROADMAP's trap); at level 5 also the full
+    tokens against pack_tokens."""
+    vals, nbits = _probe7_tokens(0, thin=level == 5)
+    want_words, want_bits = _probe7_pallas(level, vals, nbits)
+    words, bits, _, _ = emulate_p7(vals, nbits, probes.P7_NWP, level)
+    np.testing.assert_array_equal(words, np.asarray(want_words)[:, 0])
+    np.testing.assert_array_equal(bits, np.asarray(want_bits).ravel())
+    if level == 5:
+        vals, nbits = _probe7_tokens(0)
+        words, bits, _, _ = emulate_p7(vals, nbits, probes.P7_NWP, 5)
+        for b in range(2):
+            w, total = pack_tokens(_t(vals[b].astype(np.int32)), _t(nbits[b]), probes.P7_NWP)
+            np.testing.assert_array_equal(words[b], _u32(w.numpy()))
+            assert bits[b] == int(total)
 
 
 # ---- probe8 ----------------------------------------------------------------------------------

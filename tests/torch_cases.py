@@ -150,3 +150,71 @@ def plcp_text(name: str) -> np.ndarray:
 
 
 PLCP_CASES = ["n=0", "n=1", "n=2", *(f"n={n}" for n in PLCP_BOUNDARY_SIZES), "a^n", "period 1000", "english", "dna"]
+
+
+# ---- kernel F ------------------------------------------------------------------------------
+
+LZW_CASES = ["corpus", "run", "run-ends-on-phrase", "random", "short", "english"]
+
+
+def lzw_case(name: str):
+    """numpy (blocks [B, bs] uint8, n_valid [B] int32) of an LZW edge case:
+    "run" one byte throughout (phrases of 1, 2, 3, ... bytes, past two warps'
+    64 lanes), "run-ends-on-phrase" a run of 1 + 2 + ... + 76 bytes (the
+    block ends where its last phrase does) and one byte more, "random"
+    uniform bytes (the table near its worst load), "short" blocks of 0, 1
+    and 2 valid bytes, "english" the English stand-in."""
+    rng = np.random.default_rng(LZW_CASES.index(name) + 40)
+    if name == "corpus":  # the corpus of tests/test_lz78_device.py
+        bs = 512
+        blocks = np.zeros((6, bs), np.uint8)
+        blocks[0] = rng.integers(0, 256, bs)
+        blocks[1] = rng.integers(97, 100, bs)
+        blocks[2] = 65
+        blocks[3] = np.frombuffer((b"abracadabra " * (bs // 12 + 1))[:bs], np.uint8)
+        blocks[4, : bs // 2] = rng.integers(0, 4, bs // 2)
+        return blocks, np.array([bs, bs, bs, bs, bs // 2, 0], np.int32)
+    if name == "run":
+        return np.full((2, 3000), ord("z"), np.uint8), np.array([3000, 2999], np.int32)
+    if name == "run-ends-on-phrase":
+        n = 76 * 77 // 2
+        return np.full((2, n + 1), ord("a"), np.uint8), np.array([n, n + 1], np.int32)
+    if name == "random":
+        return rng.integers(0, 256, (2, 4096)).astype(np.uint8), np.array([4096, 4095], np.int32)
+    if name == "short":
+        return rng.integers(0, 256, (3, 8)).astype(np.uint8), np.array([0, 1, 2], np.int32)
+    if name == "english":
+        return np.frombuffer(english(2 * 4096, seed=13), np.uint8).reshape(2, 4096).copy(), np.array(
+            [4096, 4000], np.int32)
+    raise KeyError(name)
+
+
+# ---- probe7's pack kernel ------------------------------------------------------------------
+
+P7_WIDTHS = ["0", "32", "mix", "sparse"]
+
+
+def p7_tokens(nt: int, widths: str, seed: int = 0):
+    """numpy (vals uint32, nbits int32) [2, nt] for the pack kernel: widths
+    all 0, all 32, a mix in [0, 32] with a run of zeros, whose tile sums
+    are 1 mod 32 in row 0, so that every tile of that row after the first
+    starts inside a word it shares with the tile before (a boundary word in
+    every tile), or sparse: in row 0 one token of 3 bits a tile (every tile
+    inside word 0, the last one's walk back crossing all of them), in row 1
+    a width of 1 once in 64 tokens."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 1 << 32, (2, nt), dtype=np.uint64).astype(np.uint32)
+    if widths in ("0", "32"):
+        return vals, np.full((2, nt), int(widths), np.int32)
+    if widths == "sparse":
+        nbits = np.zeros((2, nt), np.int32)
+        nbits[0, 500::1024] = 3
+        nbits[1] = rng.random(nt) < 1 / 64
+        return vals, nbits
+    nbits = rng.integers(0, 33, (2, nt)).astype(np.int32)
+    nbits[1, 100:400] = 0
+    tiles = nbits[0].reshape(-1, 1024)
+    for row in tiles:  # the last width tunes the tile's sum to 1 mod 32
+        row[-1] = 0
+        row[-1] = (1 - row.sum()) % 32
+    return vals, nbits

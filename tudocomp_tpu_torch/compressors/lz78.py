@@ -155,7 +155,7 @@ class LZ78Compressor(Compressor):
         where use_parse_device routes them to the host parse (which also
         rejects a dict_size)."""
         device = self.env.registry.device
-        if self.env.option("dict_size").as_integer() or not use_parse_device(blocks.shape[1], device):
+        if self.env.option("dict_size").as_integer() or not use_parse_device(blocks.shape[1], len(blocks), device):
             return None
         with StatPhase("device lz78 parse") as ph:
             ph.log("blocks", len(blocks))

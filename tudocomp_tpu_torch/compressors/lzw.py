@@ -153,7 +153,7 @@ class LZWCompressor(Compressor):
         use_parse_device routes them to the host parse (which also rejects
         a dict_size)."""
         device = self.env.registry.device
-        if self.env.option("dict_size").as_integer() or not use_parse_device(blocks.shape[1], device):
+        if self.env.option("dict_size").as_integer() or not use_parse_device(blocks.shape[1], len(blocks), device):
             return None
         with StatPhase("device lzw parse") as ph:
             ph.log("blocks", len(blocks))

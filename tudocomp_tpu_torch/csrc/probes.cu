@@ -25,8 +25,9 @@
 //   - The one-hot products on the matrix unit, which scattered counts and
 //     word parts, are atomicAdd / atomicXor into shared memory.
 //   - The TPU grid ran its tile axis in order and carried a scalar in SMEM
-//     from one step to the next; here one CTA owns a block and loops over
-//     its tiles with the carry in a register.
+//     from one step to the next; here probe8's CTA owns a block and loops
+//     over its tiles with the carry in a register, and the pack of probe7
+//     runs all tiles at once, a CTA summing the widths before its tile.
 //   - The dynamic-slice read-modify-write of a 384-word window becomes
 //     XORs at computed offsets (atomicXor where windows may overlap).
 // A kernel that finds a bad input (the gather, rmw, the pack at level 1-5,
@@ -57,27 +58,29 @@ __device__ __forceinline__ int floor_mod(int x, int m) {
   return r < 0 ? r + m : r;
 }
 
-__device__ __forceinline__ int warp_inclusive_scan(int x) {
+template <typename T>
+__device__ __forceinline__ T warp_inclusive_scan(T x) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, d);
+    const T y = __shfl_up_sync(FULL, x, d);
     if (lane >= d) x += y;
   }
   return x;
 }
 
-// Inclusive scan of one int per thread over the 1024 threads of a CTA, in
+// Inclusive scan of one value per thread over the 1024 threads of a CTA, in
 // thread order (row-major over the tile); *total gets the sum. s_warp holds
-// 33 ints. Ends with a barrier, so s_warp can be reused at once.
-__device__ int tile_inclusive_scan(int x, int* s_warp, int* total) {
+// 33 values. Ends with a barrier, so s_warp can be reused at once.
+template <typename T>
+__device__ T tile_inclusive_scan(T x, T* s_warp, T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = warp_inclusive_scan(x);
+  T incl = warp_inclusive_scan(x);
   if (lane == 31) s_warp[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const int ws = s_warp[lane];
-    const int wi = warp_inclusive_scan(ws);
+    const T ws = s_warp[lane];
+    const T wi = warp_inclusive_scan(ws);
     s_warp[lane] = wi - ws;
     if (lane == 31) s_warp[32] = wi;
   }
@@ -346,115 +349,190 @@ __global__ void __launch_bounds__(TILE) p6_shift_kernel(const int32_t* x, int32_
 
 // ---- etc/probe7.py: the pack kernel, built up in five levels -----------------
 //
-// One CTA per block; tiles of 1024 tokens in order, the bit offset carried.
-//   level 1  scan of the widths with the running carry; total bits
+// One CTA per (row, tile of 1024 tokens): every tile of every row at once,
+// where the script's grid walked a row's tiles in order with the bit offset
+// carried from one to the next.
+//   level 1  the tile's start offset c0 and the scan of its widths; total bits
 //   level 2  + masked value split into the part for word off >> 5 (hi) and
 //            the spill into the next word (lo)
 //   level 3  + XOR scan of hi segmented by target word (over a warp); the
 //            last token of each run keeps the run's word part
 //   level 4  + scatter of the parts into a window in shared memory that
 //            starts at the tile's 128-aligned base word
-//   level 5  + the window XORed into the arena
-// Only level 5 writes the arena, as in the script; `mid`, when given, takes
-// what levels 2-4 computed: [B, NT, 2] (hi, lo) at level 2, the same with
-// the run parts at level 3, [B, tiles, TILE_WIN] windows at level 4.
+//   level 5  + the window's words written into the arena
+// c0, the widths of the row's tiles before this one, the CTA sums itself
+// (16-byte loads where the widths are 16-byte aligned), in the same CTA scan
+// as its own widths: each thread's share of the earlier widths rides in the
+// high half of a 64-bit scan value, its own width in the low half. That
+// reads t x 4 KiB more for tile t, all in flight with the tile's own loads,
+// and waits on no other CTA; a decoupled look-back over the tile totals
+// would add a chain of round trips between CTAs and a zeroed status array
+// per launch. At the probe's 3 tiles a row that is at most 2048 widths; the
+// re-sum is exact for any row, but its reads grow as T(T - 1)/2 tiles of
+// widths over a row of T tiles, so the wrapper takes at most 16 tiles a row
+// (probes.P7_MAX_TILES).
+// Every word of the arena is written once, with a plain store, and nothing
+// zeroes it first. Levels 1-4 write zeros, each CTA its share of the row.
+// At level 5 a word that a tile boundary cuts (c0 not a multiple of 32)
+// belongs to the last tile that starts inside it: that tile ORs its own
+// bits of the word with the earlier tokens' (warp 0 walks back over them,
+// 32 tokens at a time, the first 32 loaded at the start), and the tiles
+// before it leave the word alone; every other word with bits lies in one
+// tile; the last tile zeroes the words past the row's bits. (A memset of
+// the arena before the kernel, and atomicXor on the shared words, cost a
+// launch's host time more: 12.8 against 5.1 us a launch on an NVIDIA H100
+// 80GB HBM3 at 700 W, chip_smoke.py phase 9.) Only level 5 writes bits
+// into the arena, as in the script; `mid`, when given, takes what levels
+// 2-4 computed: [B, NT, 2] (hi, lo) at level 2, the same with the run parts
+// at level 3, [B, tiles, TILE_WIN] windows at level 4. Bad widths (outside
+// [0, 32]) set the flag and count as 0, in the re-sums too.
+__device__ __forceinline__ int width_or_0(int w) { return (w < 0 || w > 32) ? 0 : w; }
+
+// The parts of a token of width nb (0-32) at bit offset off: hi for word
+// off >> 5, lo for the word after.
+__device__ __forceinline__ void token_parts(uint32_t v, int nb, int off, uint32_t* hi, uint32_t* lo) {
+  const uint32_t vm = v & (nb >= 32 ? 0xFFFFFFFFu : ((1u << nb) - 1u));
+  const int sh_end = (off & 31) + nb;
+  *hi = *lo = 0;
+  if (nb > 0) {
+    if (sh_end <= 32) {
+      *hi = vm << (32 - sh_end);
+    } else {
+      *hi = vm >> (sh_end - 32);
+      *lo = vm << (64 - sh_end);
+    }
+  }
+}
+
+// grid (B, tiles); dynamic shared memory: TILE_WIN words at level >= 4.
 __global__ void __launch_bounds__(TILE)
 p7_pack_kernel(const uint32_t* __restrict__ vals, const int32_t* __restrict__ nbits, int64_t nt,
-               int n_wp, uint32_t* words, int32_t* bits, int level, uint32_t* mid, int32_t* err) {
-  __shared__ int s_warp[33];
-  __shared__ uint32_t win[TILE_WIN];
+               int n_wp, uint32_t* words, int32_t* bits, int level, uint32_t* mid, int32_t* err,
+               int vec) {
+  __shared__ unsigned long long s_scan[33];
+  extern __shared__ uint32_t win[];
   const int64_t b = blockIdx.x;
+  const int t = blockIdx.y, n_tiles = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31;
+  const int32_t* nb_row = nbits + b * nt;
+  const uint32_t* v_row = vals + b * nt;
   uint32_t* arena = words + b * n_wp;
-  for (int j = tid; j < n_wp; j += TILE) arena[j] = 0;
-  __syncthreads();
-  const int n_tiles = (int)((nt + TILE - 1) / TILE);
-  int carry = 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int64_t i = (int64_t)t * TILE + tid;
-    int nb = 0;
-    uint32_t v = 0;
-    if (i < nt) {
-      nb = nbits[b * nt + i];
-      v = vals[b * nt + i];
-      if (nb < 0 || nb > 32) {
-        *reinterpret_cast<volatile int32_t*>(err) = 1;
-        nb = 0;
-      }
-    }
-    int total;
-    const int incl = tile_inclusive_scan(nb, s_warp, &total);
-    const int c0 = carry;
-    const int off = c0 + incl - nb;
-    carry = c0 + total;
-    if (level == 1) continue;
-
-    const uint32_t mask = nb >= 32 ? 0xFFFFFFFFu : ((1u << nb) - 1u);
-    const uint32_t vm = v & mask;
-    const int sh_end = (off & 31) + nb;
-    uint32_t hi = 0, lo = 0;
-    if (nb > 0) {
-      if (sh_end <= 32) {
-        hi = vm << (32 - sh_end);
-      } else {
-        hi = vm >> (sh_end - 32);
-        lo = vm << (64 - sh_end);
-      }
-    }
-    const int w0 = off >> 5;
-    if (level == 2) {
-      if (mid != nullptr && i < nt) {
-        mid[(b * nt + i) * 2] = hi;
-        mid[(b * nt + i) * 2 + 1] = lo;
-      }
-      continue;
-    }
-
-    const int w0_prev = __shfl_up_sync(FULL, w0, 1);
-    const int w0_next = __shfl_down_sync(FULL, w0, 1);
-    uint32_t xs = hi;
-    bool f = lane == 0 || w0 != w0_prev;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t xk = __shfl_up_sync(FULL, xs, d);
-      const bool fk = __shfl_up_sync(FULL, (int)f, d) != 0;
-      if (lane >= d) {
-        if (!f) xs ^= xk;
-        f = f || fk;
-      }
-    }
-    const bool seg_last = lane == 31 || w0 != w0_next;
-    const uint32_t hi_c = seg_last ? xs : 0u;
-    const uint32_t lo_c = seg_last ? lo : 0u;
-    if (level == 3) {
-      if (mid != nullptr && i < nt) {
-        mid[(b * nt + i) * 2] = hi_c;
-        mid[(b * nt + i) * 2 + 1] = lo_c;
-      }
-      continue;
-    }
-
-    const int abase = ((c0 >> 5) >> 7) << 7;
-    for (int j = tid; j < TILE_WIN; j += TILE) win[j] = 0;
-    __syncthreads();
-    if (hi_c) atomicXor(&win[w0 - abase], hi_c);
-    if (lo_c) atomicXor(&win[w0 + 1 - abase], lo_c);
-    __syncthreads();
-    if (level == 4) {
-      if (mid != nullptr)
-        for (int j = tid; j < TILE_WIN; j += TILE)
-          mid[(b * n_tiles + t) * TILE_WIN + j] = win[j];
-      __syncthreads();
-      continue;
-    }
-
-    for (int j = tid; j < TILE_WIN; j += TILE) {
-      const int w = abase + j;
-      if (win[j] != 0 && w < n_wp) arena[w] ^= win[j];
-    }
-    __syncthreads();
+  const int64_t i = (int64_t)t * TILE + tid;
+  int nb = __ldg(nb_row + i);
+  const uint32_t v = __ldg(v_row + i);
+  if (nb < 0 || nb > 32) {
+    *reinterpret_cast<volatile int32_t*>(err) = 1;
+    nb = 0;
   }
-  if (tid == 0) bits[b] = carry;
+  int back_nb = 0;  // warp 0 at level 5: the 32 tokens before the tile
+  uint32_t back_v = 0;
+  if (level == 5 && t > 0 && tid < 32) {
+    back_nb = width_or_0(__ldg(nb_row + i - 32));
+    back_v = __ldg(v_row + i - 32);
+  }
+  if (level < 5) {  // the arena stays zero: this CTA's share of the row
+    const int lo = (int)((int64_t)n_wp * t / n_tiles), hi = (int)((int64_t)n_wp * (t + 1) / n_tiles);
+    for (int w = lo + tid; w < hi; w += TILE) arena[w] = 0;
+  }
+  int before = 0;  // this thread's share of the widths of tiles 0 .. t - 1
+  if (vec) {
+    const int4* q4 = reinterpret_cast<const int4*>(nb_row);
+    for (int j = tid; j < t * (TILE / 4); j += TILE) {
+      const int4 q = __ldg(q4 + j);
+      before += width_or_0(q.x) + width_or_0(q.y) + width_or_0(q.z) + width_or_0(q.w);
+    }
+  } else {
+    for (int64_t j = tid; j < (int64_t)t * TILE; j += TILE) before += width_or_0(__ldg(nb_row + j));
+  }
+  unsigned long long sum;
+  const unsigned long long incl =
+      tile_inclusive_scan(((unsigned long long)before << 32) | (unsigned)nb, s_scan, &sum);
+  const int c0 = (int)(sum >> 32), tile_bits = (int)(uint32_t)sum;  // a tile's bits < 2^32
+  const int off = c0 + (int)(uint32_t)incl - nb;
+  if (t == n_tiles - 1 && tid == 0) bits[b] = c0 + tile_bits;
+  if (level == 1) return;
+
+  uint32_t hi, lo;
+  token_parts(v, nb, off, &hi, &lo);
+  const int w0 = off >> 5;
+  if (level == 2) {
+    if (mid != nullptr) reinterpret_cast<uint2*>(mid)[b * nt + i] = make_uint2(hi, lo);
+    return;
+  }
+
+  const int w0_prev = __shfl_up_sync(FULL, w0, 1);
+  const int w0_next = __shfl_down_sync(FULL, w0, 1);
+  uint32_t xs = hi;
+  bool f = lane == 0 || w0 != w0_prev;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t xk = __shfl_up_sync(FULL, xs, d);
+    const bool fk = __shfl_up_sync(FULL, (int)f, d) != 0;
+    if (lane >= d) {
+      if (!f) xs ^= xk;
+      f = f || fk;
+    }
+  }
+  const bool seg_last = lane == 31 || w0 != w0_next;
+  const uint32_t hi_c = seg_last ? xs : 0u;
+  const uint32_t lo_c = seg_last ? lo : 0u;
+  if (level == 3) {
+    if (mid != nullptr) reinterpret_cast<uint2*>(mid)[b * nt + i] = make_uint2(hi_c, lo_c);
+    return;
+  }
+
+  const int abase = ((c0 >> 5) >> 7) << 7;
+  for (int j = tid; j < TILE_WIN; j += TILE) win[j] = 0;
+  __syncthreads();
+  if (hi_c) atomicXor(&win[w0 - abase], hi_c);
+  if (lo_c) atomicXor(&win[w0 + 1 - abase], lo_c);
+  __syncthreads();
+  if (level == 4) {
+    if (mid != nullptr)
+      for (int j = tid; j < TILE_WIN; j += TILE)
+        mid[(b * n_tiles + t) * TILE_WIN + j] = win[j];
+    return;
+  }
+
+  const int end = c0 + tile_bits;
+  const bool last = t == n_tiles - 1;
+  const int w_first = c0 >> 5;
+  // the words this tile writes: from its first word (when a boundary cuts
+  // it, only as the last tile starting inside it) up to its last word that
+  // no later tile starts inside (the last tile: all of its words)
+  const int w_last = last ? ((end + 31) >> 5) - 1 : (end >> 5) - 1;
+  uint32_t earlier = 0;  // the bits of word w_first that tokens before the tile hold
+  if (tid < 32 && (c0 & 31) && w_first <= w_last) {
+    const int need = c0 & 31;  // bits of the word below c0
+    int64_t k = (int64_t)t * TILE;  // tokens [k - 32, k) at a time, back from the tile
+    int after = 0;  // the widths of tokens k .. t * TILE - 1
+    for (;;) {
+      int suffix = back_nb;  // widths of this lane's token and those after it in the chunk
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_down_sync(FULL, suffix, d);
+        if (lane + d < 32) suffix += y;
+      }
+      const int tok_end = c0 - after - (suffix - back_nb);
+      uint32_t part = 0;
+      if (back_nb > 0 && tok_end > 32 * w_first) {
+        uint32_t phi, plo;
+        token_parts(back_v, back_nb, tok_end - back_nb, &phi, &plo);
+        const int tw = (tok_end - back_nb) >> 5;
+        part = (tw == w_first ? phi : 0u) | (tw + 1 == w_first ? plo : 0u);
+      }
+      earlier |= __reduce_or_sync(FULL, part);
+      after += __shfl_sync(FULL, suffix, 0);
+      k -= 32;
+      if (after >= need || k == 0) break;
+      back_nb = width_or_0(__ldg(nb_row + k - 32 + lane));
+      back_v = __ldg(v_row + k - 32 + lane);
+    }
+  }
+  for (int w = w_first + tid; w <= w_last && w < n_wp; w += TILE)
+    arena[w] = win[w - abase] | (w == w_first ? earlier : 0u);
+  if (last)  // the words past the row's bits
+    for (int w = ((end + 31) >> 5) + tid; w < n_wp; w += TILE) arena[w] = 0;
 }
 
 // ---- etc/probe8.py: the pack kernel's infrastructure, in four steps ----------
@@ -594,12 +672,22 @@ extern "C" int tdc_probe6_shift(const void* x, void* o, void* stream) {
   return last_error();
 }
 
-// vals, nbits [B, nt]; words [B, n_wp]; bits [B]; mid may be null; err the mapped flag word.
+// vals, nbits [B, nt] (nt a multiple of TILE, nt * 32 < 2^31); words [B, n_wp]; bits
+// [B]; mid may be null; err the mapped flag word.
 extern "C" int tdc_probe7_pack(const void* vals, const void* nbits, int B, long long nt, int n_wp,
                                void* words, void* bits, int level, void* mid, void* err,
                                void* stream) {
-  p7_pack_kernel<<<B, TILE, 0, STREAM>>>(static_cast<const uint32_t*>(vals), I32(nbits), nt, n_wp,
-                                         U32W(words), I32W(bits), level, U32W(mid), I32W(err));
+  if (B <= 0) return 0;
+  if (nt == 0) {  // no tile: an empty arena, no bits
+    cudaError_t rc = cudaMemsetAsync(words, 0, (size_t)B * n_wp * sizeof(uint32_t), STREAM);
+    if (rc == cudaSuccess) rc = cudaMemsetAsync(bits, 0, (size_t)B * sizeof(int32_t), STREAM);
+    return (int)rc;
+  }
+  const dim3 grid((unsigned)B, (unsigned)(nt / TILE));
+  const int vec = ((uintptr_t)nbits & 15) == 0;
+  p7_pack_kernel<<<grid, TILE, level >= 4 ? TILE_WIN * sizeof(uint32_t) : 0, STREAM>>>(
+      static_cast<const uint32_t*>(vals), I32(nbits), nt, n_wp, U32W(words), I32W(bits), level,
+      U32W(mid), I32W(err), vec);
   return last_error();
 }
 

@@ -56,23 +56,48 @@ def use_device(env_var: str, device: torch.device) -> bool:
 
 
 # Largest block the device parse takes, lz78 and lzw alike; larger blocks
-# take the host parse. The kernels run a thread (F) or a warp (E) per block,
-# so their time grows with the block while the host's does not. Encoding 50
-# MiB of English text on an H100 (700 W) with a thread per block in both
-# kernels, the device parse was 1.3-2.1x faster than the host parse at 8
-# KiB to 1 MiB blocks; at 4 MiB one run had it ahead and another behind.
-# With E a warp per block, 4 MiB blocks encoded in 1.09 s against 4.89 s
-# for lz78 and 2.67 against 4.99 s for lzw (chip_smoke.py phase 8, NVIDIA
-# H100 80GB HBM3 at 700 W); the cap has not been set again from that. The
-# JAX package's caps (lz78 256 KiB, lzw 8 KiB) were the TPU's VMEM limits.
-PARSE_MAX_BS = 1 << 20
+# take the host parse. Kernels E and F run a warp per block, so the card
+# parses blocks side by side while the host parses them one after another,
+# but each block's chain of rounds on the card is longer than its host
+# parse below 1 MiB. Encoding with the device parse against the host
+# parse (chip_smoke.py phase 8, NVIDIA H100 80GB HBM3 at 700.00 W),
+# seconds: 50 MiB of English (7-50 blocks) at blocks of 1, 2, 4 and 8 MiB,
+# lz78 0.76/4.43, 0.99/4.73, 1.16/6.08, 2.03/6.32; lzw 0.74/4.03,
+# 0.74/3.71, 0.80/4.58, 1.12/5.04; in a second run lz78 1.01/3.97,
+# 1.05/4.20, 1.00/4.52, 1.44/5.91; lzw 0.52/3.90, 0.72/3.98, 0.79/4.21,
+# 1.03/4.75: the device parse won every size of both kinds, by 3.1x or
+# more, so the cap is the largest size measured. (The kernels take blocks
+# up to ops/lz78_cuda.MAX_BS, 16 MiB less 512 bytes. The JAX package's
+# caps, lz78 256 KiB and lzw 8 KiB, were the TPU's VMEM limits.)
+PARSE_MAX_BS = 8 << 20
+
+# Within the cap, with TDC_DEVICE_LZ78 unset, the card takes an input of
+# PARSE_MIN_BLOCKS blocks or more, or one of blocks of PARSE_ONE_BLOCK_BS
+# bytes or more. Same card, three more runs, inputs of few blocks of that
+# text, the least of 2-3 encodes each, lz78 and lzw, host time over device
+# time: one block of 8 KiB 0.39-0.52 (device 1.9-2.9 ms, host 0.8-1.5),
+# of 256 KiB 0.48-0.71 (21.5-22.9 against 10.3-16.3 ms): the host wins;
+# one block of 1 MiB 0.77-1.27, a tie; of 2, 4 and 8 MiB 0.97-1.56, the
+# card faster in 16 of 18 (the others 0.97 and 1.00). Two blocks of 256
+# KiB 0.84-1.18, a tie; of 1-8 MiB 1.40-2.79; four and eight of 256 KiB
+# 1.25-2.46; 16 and 128 of 8 KiB 1.14-1.94: the card wins. Two blocks of 8
+# KiB were not measured. Both kinds cross at the same sizes.
+PARSE_MIN_BLOCKS = 2
+PARSE_ONE_BLOCK_BS = 2 << 20
 
 
-def use_parse_device(bs: int, device: torch.device) -> bool:
-    """Should the blockwise LZ78/LZW parse of blocks of `bs` bytes run its
-    device version on `device`? TDC_DEVICE_LZ78 as in use_device, within
-    PARSE_MAX_BS."""
-    return bs <= PARSE_MAX_BS and use_device("TDC_DEVICE_LZ78", device)
+def use_parse_device(bs: int, n_blocks: int, device: torch.device) -> bool:
+    """Should the blockwise LZ78/LZW parse of `n_blocks` blocks of `bs`
+    bytes run its device version on `device`? Never past PARSE_MAX_BS;
+    within it TDC_DEVICE_LZ78=1/0 forces it on (on whichever device was
+    given) or off; unset, a CUDA device takes PARSE_MIN_BLOCKS blocks or
+    more, or blocks of PARSE_ONE_BLOCK_BS bytes or more."""
+    if bs > PARSE_MAX_BS:
+        return False
+    v = os.environ.get("TDC_DEVICE_LZ78")
+    if v in ("0", "1"):
+        return v == "1"
+    return device.type == "cuda" and (n_blocks >= PARSE_MIN_BLOCKS or bs >= PARSE_ONE_BLOCK_BS)
 
 
 # Smallest text whose suffix array is built on a CUDA device when

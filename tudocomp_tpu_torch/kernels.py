@@ -38,7 +38,7 @@ import threading
 
 import torch
 
-__all__ = ["build", "counts", "launch", "launch_flagged", "reset_counts", "HELPERS", "KERNELS"]
+__all__ = ["build", "counts", "helper", "launch", "launch_flagged", "reset_counts", "HELPERS", "KERNELS"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG, "csrc")
@@ -82,10 +82,11 @@ KERNELS = {
     "tdc_probe8_d": ("probe8_d", [_P, _I, _I, _I, _P, _P, _P, _P]),
 }
 
-# host helpers of csrc/launch.cu, which launch nothing: name -> (result type, argument types)
+# host helpers of csrc/launch.cu and csrc/lz78.cu, which launch nothing: name -> (result type, argument types)
 HELPERS = {
     "tdc_mapped_word": (_P, [_I, ctypes.POINTER(_P)]),
     "tdc_stream_wait": (_I, [_P]),
+    "tdc_parse_occupancy": (_I, [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]),
 }
 
 _counts = {name: 0 for name, _ in KERNELS.values()}
@@ -226,6 +227,13 @@ def launch(fn: str, *args) -> None:
         _call(cur, fn, ptrs)
     else:
         _switched(idx, _call, fn, ptrs)
+
+
+def helper(name: str):
+    """The loaded ctypes function of host helper `name` (HELPERS)."""
+    if name not in HELPERS:
+        raise KeyError(name)
+    return getattr(_load(), name)
 
 
 def _flag(device: int) -> tuple:

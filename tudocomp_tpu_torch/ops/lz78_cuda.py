@@ -13,10 +13,12 @@ crosses between the two packages.
 
 Each wrapper picks its route by the device of its inputs: CPU tensors go
 to the plain PyTorch version beside it, CUDA tensors to the kernel. Rows
-hold zeros past each block's count. Both kernels keep one hash table a
-block in device memory: kernel E's keyed by a hash of the phrase's bytes
-and sized by what a block's trie can hold (`z_max`, `table_log2`), kernel
-F's keyed by (node, byte), of 2 (bs + 2) slots or more.
+hold zeros past each block's count. Both kernels run a warp a block and
+keep one hash table a block in device memory, keyed by a hash of the
+phrase's bytes and sized by what a block's trie can hold: kernel E's by
+`z_max` (`table_log2`), kernel F's by `lzw_z_max` (`lzw_table_log2`).
+Tables of at most 2^BITMAP_LOG2 slots come with an occupancy bitmap in
+shared memory and are not filled; larger ones are filled with ones.
 
 `lz78_parse_blocks_device` and `lzw_parse_blocks_device` are the host
 helpers of the blockwise path: numpy blocks in, per-block numpy lists out,
@@ -38,11 +40,15 @@ __all__ = [
     "lzw_parse_blocks",
     "lzw_parse_blocks_device",
     "lzw_parse_blocks_plain",
+    "lzw_table_log2",
+    "lzw_z_max",
+    "parse_occupancy",
     "table_log2",
     "z_max",
 ]
 
 MAX_BS = (1 << 24) - 512  # node ids, at most 256 + bs, fit the 24 bits of a dictionary key
+BITMAP_LOG2 = 15  # csrc/lz78.cu: tables of at most 2^15 slots keep a bitmap and are not filled
 _SCRATCH_BYTES = 1 << 31  # dictionary scratch per launch of the host helpers
 
 
@@ -58,11 +64,6 @@ def _check(blocks, n_valid) -> None:
         raise ValueError(f"n_valid outside [0, {bs}]")
 
 
-def _log2_slots(bs: int) -> int:
-    """Kernel F's hash table: a power of two of at least 2 (bs + 2) slots."""
-    return (2 * (bs + 2) - 1).bit_length()
-
-
 def z_max(bs: int) -> int:
     """The most nodes the LZ78 trie of a block of bs bytes can hold: the most
     distinct non-empty strings whose lengths sum to at most bs, that is all
@@ -76,11 +77,61 @@ def z_max(bs: int) -> int:
     return z
 
 
-def table_log2(bs: int) -> int:
-    """log2 of kernel E's slots a block of bs bytes: the least power of two
-    (16 or more) that is at most 55% full at z_max(bs) + 1 entries."""
-    need = -(-20 * (z_max(bs) + 1) // 11)
+def _slots_log2(entries: int) -> int:
+    """log2 of the least power of two of slots (16 or more) that is at most
+    55% full at `entries` entries."""
+    need = -(-20 * entries // 11)
     return max(4, (need - 1).bit_length())
+
+
+def table_log2(bs: int) -> int:
+    """log2 of kernel E's slots a block of bs bytes: at most 55% full at
+    z_max(bs) + 1 entries."""
+    return _slots_log2(z_max(bs) + 1)
+
+
+def lzw_z_max(bs: int) -> int:
+    """The most entries the LZW dictionary of a block of bs bytes can hold.
+    Every phrase but the last inserts one entry, the phrase and the next
+    byte, so the entries are distinct strings of 2 bytes or more whose
+    lengths less one sum to at most bs - 1 (the last phrase has a byte):
+    at most all 65,536 strings of two bytes, then three-byte strings at two
+    bytes each, and so on."""
+    z, left, cost, count = 0, max(bs - 1, 0), 1, 1 << 16
+    while left >= cost:
+        k = min(count, left // cost)
+        z, left, cost, count = z + k, left - k * cost, cost + 1, count * 256
+    return z
+
+
+def lzw_table_log2(bs: int) -> int:
+    """log2 of kernel F's slots a block of bs bytes: at most 55% full at
+    lzw_z_max(bs) + 1 entries."""
+    return _slots_log2(lzw_z_max(bs) + 1)
+
+
+def parse_occupancy(lzw: bool, bs: int) -> dict:
+    """Kernel E's (lzw False) or F's registers a thread and CTAs of four
+    blocks an SM holds at once on blocks of bs bytes (the bitmap's shared
+    memory follows bs), as the CUDA runtime reports them (a card is
+    needed)."""
+    import ctypes
+
+    log2 = (lzw_table_log2 if lzw else table_log2)(bs)
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = kernels.helper("tdc_parse_occupancy")(int(lzw), log2, ctypes.byref(regs), ctypes.byref(ctas))
+    if rc != 0:
+        raise RuntimeError(f"tdc_parse_occupancy: CUDA error {rc}")
+    return {"registers": regs.value, "ctas_per_sm": ctas.value, "blocks_per_cta": 4}
+
+
+def _table(B: int, log2: int, dev) -> torch.Tensor:
+    """The kernels' hash tables, 2^log2 slots a block: all ones (empty),
+    or left unfilled where the kernel keeps an occupancy bitmap and never
+    reads an empty slot."""
+    if log2 <= BITMAP_LOG2:
+        return torch.empty((B, 1 << log2), dtype=torch.int64, device=dev)
+    return torch.full((B, 1 << log2), -1, dtype=torch.int64, device=dev)
 
 
 def _compact(emit, width: int):
@@ -142,7 +193,7 @@ def lz78_parse_blocks(blocks, n_valid):
     if B == 0:
         return parents, chars, nf
     log2 = table_log2(bs)
-    table = torch.full((B, 1 << log2), -1, dtype=torch.int64, device=dev)
+    table = _table(B, log2, dev)
     kernels.launch(
         "tdc_lz78_parse", blocks.contiguous(), bs, n_valid.to(torch.int32).contiguous(), B,
         table, log2, parents, chars, nf,
@@ -194,8 +245,8 @@ def lzw_parse_blocks(blocks, n_valid):
     nf = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0:
         return codes, nf
-    log2 = _log2_slots(bs)
-    table = torch.full((B, 1 << log2), -1, dtype=torch.int64, device=dev)
+    log2 = lzw_table_log2(bs)
+    table = _table(B, log2, dev)
     kernels.launch(
         "tdc_lzw_parse", blocks.contiguous(), bs, n_valid.to(torch.int32).contiguous(), B,
         table, log2, codes, nf,
@@ -239,7 +290,7 @@ def lzw_parse_blocks_device(blocks: np.ndarray, n_valid: np.ndarray, device) -> 
     """Parse numpy blocks [B, bs] on `device` -> per block its LZW codes
     (uint32), equal to the host lzw_parse of each block."""
     out = []
-    for b, nv in _batches(blocks, n_valid, torch.device(device), _log2_slots):
+    for b, nv in _batches(blocks, n_valid, torch.device(device), lzw_table_log2):
         codes, nf = lzw_parse_blocks(b, nv)
         nf, (got,) = _to_host(nf, codes)
         out.extend(got[i, :k].astype(np.uint32) for i, k in enumerate(nf))

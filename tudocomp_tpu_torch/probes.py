@@ -56,6 +56,10 @@ _U32 = 0xFFFFFFFF
 P3_B, P3_BS = 64, 1 << 18
 P6_RMW_WORDS = 1152
 P7_B, P7_NT, P7_N_WORDS = 2, 3072, 1100
+# Most tiles a row pack_levels takes. p7_pack_kernel's CTA re-sums the
+# widths of the tiles before its own, so a row of T tiles reads T(T - 1)/2
+# tiles of widths: 3 at the probe's 3 tiles, 120 (7.5 times the row) at 16.
+P7_MAX_TILES = 16
 P7_NWP = -(-P7_N_WORDS // 128) * 128 + WIN + 128
 P8_B, P8_T, P8_NWP = 2, 3, 1664
 
@@ -277,8 +281,8 @@ def window_rmw(i: torch.Tensor, n_words: int = P6_RMW_WORDS) -> torch.Tensor:
 def _check_tokens(vals, nbits):
     if vals.dim() != 2 or vals.shape != nbits.shape or vals.shape[1] % TILE:
         raise ValueError(f"expected [B, NT] tokens with NT a multiple of {TILE}, not {tuple(vals.shape)}")
-    if vals.shape[1] * 32 >= 1 << 31:
-        raise ValueError("too many tokens for int32 bit offsets")
+    if vals.shape[1] > P7_MAX_TILES * TILE:
+        raise ValueError(f"more than {P7_MAX_TILES} tiles a row: {vals.shape[1]} tokens")
 
 
 def pack_levels_plain(vals, nbits, n_wp: int, level: int, want_mid: bool = False):
@@ -343,7 +347,9 @@ def pack_levels(vals, nbits, n_wp: int, level: int, want_mid: bool = False):
     fills the arena (bit-equal to ops/bitpack.pack_rows and kernel A); bits
     is the sum of the widths at every level. With want_mid a third result
     holds what levels 2-4 computed and the script threw away (None at
-    levels 1 and 5)."""
+    levels 1 and 5). On the card a CTA takes one tile of a row, every tile
+    at once (csrc/probes.cu:p7_pack_kernel), and int32 contiguous tokens go
+    to the kernel as they are."""
     if level not in (1, 2, 3, 4, 5):
         raise ValueError(f"level {level} outside 1..5")
     if not on_cuda(vals, nbits):
@@ -351,8 +357,11 @@ def pack_levels(vals, nbits, n_wp: int, level: int, want_mid: bool = False):
     _check_tokens(vals, nbits)
     B, NT = nbits.shape
     dev = nbits.device
-    vals = vals.to(torch.int32).contiguous()
-    nbits = _i32(nbits)
+    if vals.dtype != torch.int32 or not vals.is_contiguous():
+        vals = vals.to(torch.int32).contiguous()
+    if nbits.dtype != torch.int32 or not nbits.is_contiguous():
+        nbits = _i32(nbits)
+    # two allocations take less host time than one with two views
     words = torch.empty((B, 1, n_wp), dtype=torch.int32, device=dev)
     bits = torch.empty((B, 1, 1), dtype=torch.int32, device=dev)
     mid = None
