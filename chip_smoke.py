@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tudocomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns PARENT   # kernels D, H, E, F and P7 of PARENT's checkout and this one, in turns
-    python3 chip_smoke.py --dh ROOT        # kernels D, H, E, F and P7 of ROOT's checkout, one JSON line
+    python3 chip_smoke.py --turns PARENT   # kernels A, B, D, H, E, F and P7 of PARENT's checkout and this one, in turns
+    python3 chip_smoke.py --dh ROOT        # kernels A, B, D, H, E, F and P7 of ROOT's checkout, one JSON line
 
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
@@ -17,7 +17,10 @@ line each:
                     helpers (g++) beside them;
   2. kernels        kernels A-D against their plain PyTorch versions on the
                     card, at the shapes of the Huffman path, held to exact
-                    equality (every stage is integer arithmetic); D also on
+                    equality (every stage is integer arithmetic); A and B
+                    also on the tile-boundary cases of
+                    tests/torch_cases.py (pack_edge_cases,
+                    pack_bytes_edge_cases); D also on
                     phase 3's input as 256 streams of 256 KiB (the CLI's
                     block size), held to the input, with the largest count
                     of synchronisation rounds at both shapes;
@@ -27,8 +30,10 @@ line each:
                     the one the host path writes, and both decoders must
                     return the input; kernels A-D must have been launched;
   4. timing         CUDA-event times of kernels A-D and their plain versions
-                    (D at both of phase 2's shapes), and the end-to-end
-                    encode / decode rates of the roundtrip;
+                    (D at both of phase 2's shapes), A's and B's wrappers'
+                    host time by part (checks and allocations, launch,
+                    stream wait), and the end-to-end encode / decode rates
+                    of the roundtrip;
   5. shared         kernel G (Moffat phases 1-2, int64) against its plain
                     version, exactly, on the summed histogram of the 64 MiB
                     input, on phase 2's 69 histograms and on a row with
@@ -109,10 +114,12 @@ failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
 
---turns PARENT compares kernels D, H, E, F and P7 of two checkouts on one
-card: it runs this script with --dh in a process of its own for PARENT,
+--turns PARENT compares kernels A, B, D, H, E, F and P7 of two checkouts on
+one card: it runs this script with --dh in a process of its own for PARENT,
 this checkout, this checkout and PARENT, in that order. --dh ROOT builds
-ROOT's kernels and times D at both of phase 2's shapes, H on 16 MiB of
+ROOT's kernels and times A and B at phase 2's shapes (their device ms under
+the __global__ names of either design of csrc/pack.cu), D at both of phase
+2's shapes, H on 16 MiB of
 English, 16 MiB of DNA and a 256 KiB block, phase 10's lcp_device stage on
 the two repetitive texts, F at [6400, 8192] of the English stand-in and in
 its blocks of 1 and 4 MiB, E at [6400, 8192] and [200, 262144], and P7 at
@@ -225,8 +232,8 @@ KERNEL_INFO = {
 }
 # counter name -> the __global__ functions its launcher runs, as the profiler names them
 DEVICE_FNS = {
-    "pack_blocks": ("tile_sums_kernel<false>", "scatter_kernel<false>"),
-    "pack_bytes_blocks": ("tile_sums_kernel<true>", "scatter_kernel<true>"),
+    "pack_blocks": ("tile_widths_kernel<false>", "pack_tiles_kernel<false>"),
+    "pack_bytes_blocks": ("tile_widths_kernel<true>", "pack_tiles_kernel<true>"),
     "huffman_tables": ("huffman_tables_kernel",),
     "moffat_phase12": ("moffat_phase12_kernel",),
     "decode_payloads": ("decode_kernel",),
@@ -246,6 +253,13 @@ DEVICE_FNS = {
     "probe8_b": ("p8_b_kernel",),
     "probe8_c": ("p8_c_kernel",),
     "probe8_d": ("p8_d_kernel",),
+}
+# the names of kernels A's and B's __global__ functions before their
+# one-store-a-word tiles (a tile-sum pass and an atomicOr scatter), so that
+# --dh times a checkout of either design
+OLD_DEVICE_FNS = {
+    "pack_blocks": ("tile_sums_kernel<false>", "scatter_kernel<false>"),
+    "pack_bytes_blocks": ("tile_sums_kernel<true>", "scatter_kernel<true>"),
 }
 
 
@@ -469,9 +483,9 @@ def cuda_ms(fn, budget_ms: float = 500.0, max_iters: int = 50) -> float:
     return timed(n) if n >= 2 else t
 
 
-def device_time(fn, name, iters: int = 10) -> dict:
+def device_time(fn, name, iters: int = 10, fns=None) -> dict:
     """Device ms a call of fn() spends in the kernels of counter `name`
-    (DEVICE_FNS; name None: in every kernel it runs), from torch.profiler's
+    (DEVICE_FNS, or the names `fns`; name None: in every kernel it runs), from torch.profiler's
     key_averages() over `iters` warm calls (None: the profiler saw no
     device time, not measured), and the kernel events it counted. A long
     run of profiler sessions in one process can drop events: with fewer
@@ -484,7 +498,7 @@ def device_time(fn, name, iters: int = 10) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fns = DEVICE_FNS[name] if name else None
+    fns = fns or (DEVICE_FNS[name] if name else None)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -612,6 +626,126 @@ def plcp_timing(plcp_torch, t, sa_d) -> dict:
             "call_device_ms": device_time(fn, None)["device_ms"], **bound("plcp_segments", (t, sa_d), fn())}
 
 
+def huff_batch(dev):
+    """Phase 2's batch: 64 x 256 KiB of zipf(1.3) bytes on the card, its
+    n_valid and its per-block tables (kernel C)."""
+    import torch
+
+    from tudocomp_tpu_torch.ops import huffman_torch as ht
+    from tudocomp_tpu_torch.ops import table_kernels as tk
+
+    blocks = torch.from_numpy(zipf_bytes(0, BENCH_BLOCKS * BS).reshape(BENCH_BLOCKS, BS)).to(dev)
+    n_valid = torch.full((BENCH_BLOCKS,), BS, dtype=torch.int32, device=dev)
+    return blocks, n_valid, tk.huffman_tables(ht.block_histograms(blocks, n_valid))
+
+
+def pack_args(dev, blocks, n_valid, tabs):
+    """Kernel A's and B's arguments on the Huffman path of `blocks` with
+    tables `tabs`: the header tokens (A), then the fused lookup and pack
+    after the headers into arenas of 9 bits a byte (B), as
+    ops/huffman_torch.py and parallel/runtime.py make them."""
+    import torch
+
+    from tudocomp_tpu_torch.ops import bitpack_cuda as bc
+    from tudocomp_tpu_torch.ops import huffman_torch as ht
+
+    tv, tb = ht.huffman_table_tokens(tabs.numl, tabs.ordered_sym, tabs.sigma, tabs.longest)
+    normal = (tabs.sigma >= 2)[:, None]
+    tbl_v = torch.where(normal, tabs.cw, torch.arange(256, dtype=torch.int32, device=dev))
+    tbl_nb = torch.where(normal, tabs.lengths, 8)
+    hdr_w, hdr_b = bc.pack_blocks_plain(tv, tb, ht.N_TABLE_TOKENS)
+    n_words = (9 * blocks.shape[1] + 4096 + 31) // 32
+    return (tv, tb, ht.N_TABLE_TOKENS), (blocks, n_valid, tbl_v, tbl_nb, hdr_w, hdr_b, n_words)
+
+
+def pack_edge_errs(dev) -> dict:
+    """Kernels A and B against their plain versions on the card on the
+    tile-boundary cases of tests/torch_cases.py (the shared table's expanded
+    to its batch), each into arenas of random words: "A name" / "B name" ->
+    max_abs_err."""
+    import numpy as np
+    import torch
+
+    from tests import torch_cases
+    from tudocomp_tpu_torch.ops import bitpack_cuda as bc
+
+    def i32(a):
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+    def garbage():  # freed at once: the arenas' torch.empty may get these words
+        torch.randint(-(1 << 31), 1 << 31, (1 << 22,), dtype=torch.int32, device=dev)
+
+    out = {}
+    for name, (v, nb, n_words) in torch_cases.pack_edge_cases().items():
+        args = (i32(v), i32(nb), n_words)
+        garbage()
+        out[f"A {name}"] = max_abs_err(bc.pack_blocks(*args), bc.pack_blocks_plain(*args))
+    for name, (blk, nv, tv, tb, hw, hb, n_words) in torch_cases.pack_bytes_edge_cases().items():
+        rows = [i32(x) for x in (tv, tb, hw, hb)]
+        if tv.shape[0] != blk.shape[0]:
+            rows = [x.expand(blk.shape[0], *x.shape[1:]) for x in rows]
+        args = (torch.from_numpy(blk).to(dev), torch.from_numpy(nv).to(dev), *rows, n_words)
+        garbage()
+        out[f"B {name}"] = max_abs_err(bc.pack_bytes_blocks(*args), bc.pack_bytes_blocks_plain(*args))
+    return out
+
+
+def pack_timing(dev) -> dict:
+    """Kernels A and B at phase 2's shapes (the headers of 64 x 256 KiB of
+    zipf(1.3), then its fused encode), each held to its plain version:
+    wrapper ms (CUDA events) and device ms (torch.profiler) of their
+    __global__ functions under either design's names."""
+    from tudocomp_tpu_torch.ops import bitpack_cuda as bc
+
+    a_args, b_args = pack_args(dev, *huff_batch(dev))
+    out = {}
+    for name, args, kernel, plain in (("pack_blocks", a_args, bc.pack_blocks, bc.pack_blocks_plain),
+                                      ("pack_bytes_blocks", b_args, bc.pack_bytes_blocks,
+                                       bc.pack_bytes_blocks_plain)):
+        if max_abs_err(kernel(*args), plain(*args)) != 0:
+            raise AssertionError(f"{name} differs from its plain version")
+        out[name] = {"ms": cuda_ms(lambda: kernel(*args), max_iters=200),
+                     **device_time(lambda: kernel(*args), name, iters=20,
+                                   fns=DEVICE_FNS[name] + OLD_DEVICE_FNS[name])}
+    return out
+
+
+def pack_host_split(name: str, args) -> dict:
+    """Host microseconds of the parts of a kernel A or B wrapper call
+    (`name` pack_blocks or pack_bytes_blocks, `args` its arguments): the
+    whole wrapper (it waits for the card), its checks, casts and
+    allocations (launch_args_a / launch_args_b), the allocations alone, the
+    flagged launch (flag zeroed, kernels queued, stream wait, flag read),
+    the launch alone and the stream wait alone."""
+    import torch
+
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.ops import bitpack_cuda as bc
+
+    if name == "pack_blocks":
+        wrapper, prep, fn, scratch = bc.pack_blocks, bc.launch_args_a, "tdc_pack_blocks", 5
+    else:
+        wrapper, prep, fn, scratch = bc.pack_bytes_blocks, bc.launch_args_b, "tdc_pack_bytes_blocks", 13
+    largs = prep(*args)
+    dev = largs[-1].get_device()
+    shapes = [tuple(t.shape) for t in (largs[scratch], largs[-2], largs[-1]) if t is not None]
+    flag = kernels._flag(dev)[1]
+    wait = kernels.helper("tdc_stream_wait")
+
+    def alloc():
+        return [torch.empty(shape, dtype=torch.int32, device=largs[-1].device) for shape in shapes]
+
+    return {
+        "wrapper, waits for the card": host_us(lambda: wrapper(*args), 500),
+        "checks, casts and allocations": host_us(lambda: prep(*args)),
+        f"allocations: {len(shapes)} torch.empty": host_us(alloc),
+        "kernels.launch_flagged: flag zeroed, launch, stream wait, flag read": host_us(
+            lambda: kernels.launch_flagged(fn, *largs), 500),
+        "kernels.launch alone: the kernels queued, no wait": host_us(lambda: kernels.launch(fn, *largs, flag), 200),
+        "tdc_stream_wait on an idle stream": host_us(lambda: wait(kernels._stream(dev))),
+    }
+
+
 def host_sa(text):
     """The C++ SA-IS of a sentinel-terminated text."""
     import numpy as np
@@ -637,7 +771,8 @@ def host_plcp(text, sa):
 
 
 def dh_phase(dev, gpu, package: str) -> dict:
-    """Kernels D, H, F and P7 alone, from the package first on sys.path: D
+    """Kernels A, B, D, H, E, F and P7 alone, from the package first on
+    sys.path: A and B at phase 2's shapes (pack_timing); D
     on the 1024 x 16 KiB zipf(1.3) streams of phase 2 and the 256 x 256 KiB
     streams of phase 3's input, each held to its input; H on the 16 MiB
     English and DNA texts and a 256 KiB English block, each held to the
@@ -654,6 +789,8 @@ def dh_phase(dev, gpu, package: str) -> dict:
     from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
     from tudocomp_tpu_torch.ops import plcp_torch
 
+    pack = pack_timing(dev)
+    torch.cuda.empty_cache()
     dec = {}
     data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
     for shape, raw, bs in (("1024 x 16 KiB", zipf_bytes(0, 16 * MIB).tobytes(), DEC_BS),
@@ -698,7 +835,7 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p7 = p7_timing(probes, *probes.probe7_inputs(dev))
     torch.cuda.empty_cache()
     no_jax()
-    return {"phase": "kernels D, H, E, F and P7", "package": package, "decode": dec, "plcp": h,
+    return {"phase": "kernels A, B, D, H, E, F and P7", "package": package, **pack, "decode": dec, "plcp": h,
             "lcp_device_stage_best_of_3_s": stage, "lzw_parse": f, "lz78_parse": e, "probe7_pack": p7,
             "card": gpu}
 
@@ -815,7 +952,6 @@ def main() -> int:
           "card": gpu})
 
     # 2. kernels against their plain versions, main-path shapes ---------------
-    n_words = (9 * BS + 4096 + 31) // 32
     batch = zipf_bytes(0, BENCH_BLOCKS * BS).reshape(BENCH_BLOCKS, BS)
     blocks = torch.from_numpy(batch).to(dev)
     n_valid = torch.full((BENCH_BLOCKS,), BS, dtype=torch.int32, device=dev)
@@ -839,23 +975,20 @@ def main() -> int:
     cases["huffman_tables"] = ((hists_all,), tk.huffman_tables, tk.huffman_tables_plain)
 
     t = tk.HuffmanTables(*(x[:BENCH_BLOCKS] for x in tabs))
-    tv, tb = ht.huffman_table_tokens(t.numl, t.ordered_sym, t.sigma, t.longest)
+    a_args, b_args = pack_args(dev, blocks, n_valid, t)
     rng = np.random.default_rng(1)
     rand_nb = torch.from_numpy(rng.integers(0, 33, (64, 65536)).astype(np.int32)).to(dev)
     rand_v = torch.from_numpy(rng.integers(0, 1 << 32, (64, 65536)).astype(np.uint32).view(np.int32)).to(dev)
     a_err = 0
-    for args in ((tv, tb, ht.N_TABLE_TOKENS), (rand_v, rand_nb, 20000)):  # the second drops bits
+    for args in (a_args, (rand_v, rand_nb, 20000)):  # the second drops bits
         a_err = max(a_err, max_abs_err(bc.pack_blocks(*args), bc.pack_blocks_plain(*args)))
     errs["pack_blocks"] = a_err
-    cases["pack_blocks"] = ((tv, tb, ht.N_TABLE_TOKENS), bc.pack_blocks, bc.pack_blocks_plain)
-
-    normal = (t.sigma >= 2)[:, None]
-    tbl_v = torch.where(normal, t.cw, torch.arange(256, dtype=torch.int32, device=dev))
-    tbl_nb = torch.where(normal, t.lengths, 8)
-    hdr_w, hdr_b = bc.pack_blocks_plain(tv, tb, ht.N_TABLE_TOKENS)
-    b_args = (blocks, n_valid, tbl_v, tbl_nb, hdr_w, hdr_b, n_words)
+    cases["pack_blocks"] = (a_args, bc.pack_blocks, bc.pack_blocks_plain)
     errs["pack_bytes_blocks"] = max_abs_err(bc.pack_bytes_blocks(*b_args), bc.pack_bytes_blocks_plain(*b_args))
     cases["pack_bytes_blocks"] = (b_args, bc.pack_bytes_blocks, bc.pack_bytes_blocks_plain)
+    edge_errs = pack_edge_errs(dev)
+    for name, key in (("pack_blocks", "A "), ("pack_bytes_blocks", "B ")):
+        errs[name] = max(errs[name], *(e for c, e in edge_errs.items() if c.startswith(key)))
 
     dec_raw = batch.reshape(-1)[: 16 * MIB].tobytes()
     d_args = decode_inputs(dec_raw, DEC_BS, dev)
@@ -877,7 +1010,7 @@ def main() -> int:
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions: {errs}")
     emit({"phase": "kernels", "max_abs_err": errs, "tolerance": 0, "streams": d_args[0].shape[0],
-          "decode_max_sync_rounds": d_rounds, "card": gpu})
+          "pack_edge_cases_max_abs_err": edge_errs, "decode_max_sync_rounds": d_rounds, "card": gpu})
 
     # 3. roundtrip through the public entry points ----------------------------
     from tudocomp_tpu_torch.driver import compress, decompress
@@ -920,6 +1053,8 @@ def main() -> int:
             "plain_ms": cuda_ms(lambda: plain(*args), budget_ms=2000.0, max_iters=10),
             **bound(name, args, kernel(*args)),
         }
+    for name in ("pack_blocks", "pack_bytes_blocks"):
+        timing[name]["host_us"] = pack_host_split(name, cases[name][0])
     timing["decode_payloads"]["max_sync_rounds"] = max(d_rounds.values())
     timing["decode_payloads"]["by_shape"] = {
         shape: {**decode_timing(hd, args), "max_sync_rounds": d_rounds[shape]}

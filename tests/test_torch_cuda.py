@@ -52,7 +52,15 @@ def test_huffman_tables_kernel(dev):
     _equal(tk.huffman_tables(hists), tk.huffman_tables_plain(hists))
 
 
+def _dev_i32(a, dev):
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+
 def test_pack_blocks_kernel(dev):
+    """Random tokens, then every case of tc.pack_edge_cases (tile boundaries,
+    zero runs, 32-bit tokens, drops at a boundary, the header's one-tile
+    rows), each into an arena of random words (torch.empty leaves what was
+    there: the kernel has to write every word)."""
     rng = np.random.default_rng(1)
     nbits = torch.from_numpy(rng.integers(0, 33, (3, 5000)).astype(np.int32)).to(dev)
     values = torch.from_numpy(rng.integers(0, 1 << 32, (3, 5000)).astype(np.uint32).view(np.int32)).to(dev)
@@ -60,6 +68,13 @@ def test_pack_blocks_kernel(dev):
         _equal(bc.pack_blocks(values, nbits, n_words), bc.pack_blocks_plain(values, nbits, n_words))
     with pytest.raises(ValueError, match="outside"):
         bc.pack_blocks(values, nbits + 1, 100)
+    for name, (v, nb, n_words) in tc.pack_edge_cases().items():
+        torch.randint(-(1 << 31), 1 << 31, (1 << 20,), dtype=torch.int32, device=dev)  # garbage for torch.empty
+        v, nb = _dev_i32(v, dev), _dev_i32(nb, dev)
+        got = bc.pack_blocks(v, nb, n_words)
+        torch.cuda.synchronize()
+        for g, w in zip(got, bc.pack_blocks_plain(v, nb, n_words)):
+            assert torch.equal(g.cpu(), w.cpu()), name
 
 
 def test_pack_bytes_blocks_kernel(dev):
@@ -73,6 +88,19 @@ def test_pack_bytes_blocks_kernel(dev):
     for n_words in (50, 4000):
         args = (blocks, n_valid, tbl_v, tbl_nb, hdr_w, hdr_b, n_words)
         _equal(bc.pack_bytes_blocks(*args), bc.pack_bytes_blocks_plain(*args))
+    # every case of tc.pack_bytes_edge_cases: headers ending mid-word and on a word
+    # boundary, n_valid mid-tile and 0, degenerate blocks, 32-bit codes, tile
+    # boundaries that cut words, a drop at a boundary, the shared table (stride 0)
+    for name, (blk, nv, tv, tb, hw, hb, n_words) in tc.pack_bytes_edge_cases().items():
+        torch.randint(-(1 << 31), 1 << 31, (1 << 20,), dtype=torch.int32, device=dev)
+        tv, tb, hw, hb = (_dev_i32(x, dev) for x in (tv, tb, hw, hb))
+        if tv.shape[0] != blk.shape[0]:
+            tv, tb, hw, hb = (x.expand(blk.shape[0], *x.shape[1:]) for x in (tv, tb, hw, hb))
+        args = (torch.from_numpy(blk).to(dev), torch.from_numpy(nv).to(dev), tv, tb, hw, hb, n_words)
+        got = bc.pack_bytes_blocks(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, bc.pack_bytes_blocks_plain(*args)):
+            assert torch.equal(g.cpu(), w.cpu()), name
 
 
 def test_decode_kernel(dev):

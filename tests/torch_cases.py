@@ -1,5 +1,7 @@
-"""Inputs shared by the port's CPU tests and its card tests (no JAX here).
+"""Inputs shared by the port's CPU tests, its card tests and chip_smoke.py
+(no JAX here).
 
+Kernels A and B: the cases at the boundaries of their tile schedule.
 Kernel D: one Huffman stream per case, as the tables and words
 parse_payload_tables gives (or made by hand where a payload cannot say it),
 with the bytes it must decode to. Kernel H: sentinel-terminated texts.
@@ -9,6 +11,7 @@ import numpy as np
 
 from tudocomp_tpu_torch.driver import compress
 from tudocomp_tpu_torch.io.bitio import BitWriter
+from tudocomp_tpu_torch.ops import bitpack_cuda as bc
 from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
 
 INF = 2**31 - 1
@@ -218,3 +221,109 @@ def p7_tokens(nt: int, widths: str, seed: int = 0):
         row[-1] = 0
         row[-1] = (1 - row.sum()) % 32
     return vals, nbits
+
+
+def _tune_tiles(nbits: np.ndarray, residue: int, tile: int) -> None:
+    """Set the last width of every whole tile of each row (to 1-32) so that
+    the tile's widths sum to `residue` mod 32."""
+    for row in nbits:
+        for t in range(len(row) // tile):
+            last = t * tile + tile - 1
+            row[last] = (residue - int(row[t * tile: last].sum()) - 1) % 32 + 1
+
+
+def pack_edge_cases(tile: int = bc.TILE_A) -> dict:
+    """Kernel A's (csrc/pack.cu) tile-boundary cases at `tile` tokens a CTA:
+    name -> (values uint32 [B, NT], nbits int32 [B, NT], n_words), numpy."""
+    rng = np.random.default_rng(90)
+
+    def vals(shape):
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+    cases = {}
+    nt = 3 * tile + 100
+    nb = rng.integers(1, 33, (2, nt)).astype(np.int32)
+    _tune_tiles(nb[:1], 17, tile)  # row 0: every tile boundary cuts a word
+    _tune_tiles(nb[1:], 0, tile)  # row 1: every tile ends on a word boundary
+    cases["boundary-words"] = (vals((2, nt)), nb, int(nb.sum(1).max()) // 32 + 5)
+    cases["32-bit"] = (vals((2, 2 * tile + 5)), np.full((2, 2 * tile + 5), 32, np.int32), 2 * tile + 9)
+    nb = rng.integers(0, 9, (3, nt)).astype(np.int32)
+    nb[0, tile - 700: 2 * tile + 300] = 0  # a zero run over all of tile 1
+    nb[1, : 2 * tile + 1] = 0  # two leading tiles without bits
+    nb[2] = 0
+    nb[2, 500::tile] = 3  # one token of 3 bits a tile: every tile inside word 0 or 1
+    cases["zero-runs"] = (vals((3, nt)), nb, int(nb.sum(1).max()) // 32 + 5)
+    nb = rng.integers(1, 33, (2, nt)).astype(np.int32)
+    _tune_tiles(nb, 17, tile)
+    cut = int(nb[0, :tile].sum()) >> 5  # the word that tile 1 of row 0 starts in
+    cases["drop-at-boundary"] = (vals((2, nt)), nb, cut)
+    cases["drop-past-boundary"] = (vals((2, nt)), nb, cut + 1)
+    cases["all-zero"] = (vals((2, nt)), np.zeros((2, nt), np.int32), 40)
+    nb = rng.integers(0, 33, (3, tile + 3)).astype(np.int32)  # odd rows: unaligned loads and stores
+    cases["ragged"] = (vals((3, tile + 3)), nb, int(nb.sum(1).max()) // 32 + 7)
+    nb = rng.integers(0, 9, (4, 393)).astype(np.int32)  # the Huffman header's shape, one tile a row
+    nb[3] = 0
+    cases["header-rows"] = (vals((4, 393)), nb, 393)
+    return cases
+
+
+def pack_bytes_edge_cases(tile: int = bc.TILE_B) -> dict:
+    """Kernel B's tile-boundary cases at `tile` bytes a CTA: name ->
+    (blocks uint8 [B, bs], n_valid int32 [B], table_vals uint32 [R, 256],
+    table_bits int32 [R, 256], hdr_words uint32 [R, H], hdr_bits int32 [R],
+    n_words), numpy; R is B, or 1 for one table and header shared by every
+    row (pass them expanded to B rows)."""
+    rng = np.random.default_rng(91)
+    bs = 3 * tile + 50
+
+    def tables(rows, lo=1, hi=13):
+        return (rng.integers(0, 1 << 32, (rows, 256), dtype=np.uint64).astype(np.uint32),
+                rng.integers(lo, hi, (rows, 256)).astype(np.int32))
+
+    def header(bits, cols=12):
+        bits = np.asarray(bits, np.int32)
+        w = rng.integers(0, 1 << 32, (len(bits), cols), dtype=np.uint64).astype(np.uint32)
+        for r, n in enumerate(bits.tolist()):  # the bits past the header are zero
+            w[r, n // 32 + 1:] = 0
+            if n % 32:
+                w[r, n // 32] &= np.uint32((0xFFFFFFFF << (32 - n % 32)) & 0xFFFFFFFF)
+            else:
+                w[r, n // 32:] = 0
+        return w, bits
+
+    def blocks(rows):
+        return rng.integers(0, 256, (rows, bs)).astype(np.uint8)
+
+    def n_words(tv, tb, blk, nv, hb):
+        return int(max(hb[r % len(hb)] + tb[r % len(tb)][blk[r, : nv[r]]].sum() for r in range(len(blk)))) // 32 + 5
+
+    cases = {}
+    full = np.full(4, bs, np.int32)
+    for name, hbits in (("header-mid-word", [70, 33, 95, 1]), ("header-word-boundary", [64, 0, 32, 352])):
+        blk, (tv, tb), (hw, hb) = blocks(4), tables(4), header(hbits)
+        cases[name] = (blk, full, tv, tb, hw, hb, n_words(tv, tb, blk, full, hb))
+    blk, (tv, tb), (hw, hb) = blocks(4), tables(4), header([70, 64, 5, 0])
+    nv = np.array([bs, tile + 1000, 0, 5], np.int32)  # n_valid mid-tile, at 0, in word 0
+    cases["n-valid"] = (blk, nv, tv, tb, hw, hb, n_words(tv, tb, blk, nv, hb))
+    blk, (tv, tb), (hw, hb) = blocks(3), tables(3), header([1, 1, 70])
+    blk[0] = 7
+    tv[:2] = np.arange(256, dtype=np.uint32)  # degenerate blocks: raw 8-bit literals
+    tb[:2] = 8
+    cases["degenerate"] = (blk, np.array([bs, 3000, bs], np.int32), tv, tb, hw, hb, n_words(tv, tb, blk, full, hb))
+    blk, (tv, _), (hw, hb) = blocks(2), tables(2), header([70, 64])
+    tb = np.full((2, 256), 32, np.int32)
+    cases["32-bit"] = (blk, full[:2], tv, tb, hw, hb, n_words(tv, tb, blk, full, hb))
+    blk, (tv, _), (hw, hb) = blocks(2), tables(2), header([70, 64])
+    tb = np.tile(np.arange(256, dtype=np.int32) % 32 + 1, (2, 1))  # every width 1-32
+    for r in range(2):  # the last byte of each tile tunes the tile's widths to 17 mod 32
+        for t in range(bs // tile):
+            last = t * tile + tile - 1
+            rest = int(hb[r] if t == 0 else 0) + int(tb[r][blk[r, t * tile: last]].sum())
+            blk[r, last] = (17 - rest - 1) % 32
+    cases["boundary-words"] = (blk, full[:2], tv, tb, hw, hb, n_words(tv, tb, blk, full, hb))
+    cut = int(hb[0] + tb[0][blk[0, :tile]].sum()) >> 5
+    cases["drop-at-boundary"] = (blk, full[:2], tv, tb, hw, hb, cut)
+    blk, (tv, tb), (hw, hb) = blocks(4), tables(1, 1, 10), header([75])
+    nv = np.array([bs, tile, 17, 0], np.int32)
+    cases["shared-table"] = (blk, nv, tv, tb, hw, hb, n_words(tv, tb, blk, nv, hb))
+    return cases

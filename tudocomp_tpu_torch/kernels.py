@@ -58,7 +58,7 @@ KERNELS = {
     "tdc_pack_blocks": ("pack_blocks", [_P, _P, _I, _L, _I, _P, _P, _P, _P, _P]),
     "tdc_pack_bytes_blocks": (
         "pack_bytes_blocks",
-        [_P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _L, _P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P],
     ),
     "tdc_huffman_tables": ("huffman_tables", [_P, _I, _P, _P, _P, _P, _P, _P, _P]),
     "tdc_moffat_phase12": ("moffat_phase12", [_P, _P, _I, _P, _P]),
