@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tudocomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns PARENT   # kernels A, B, D, H, E, F and P7 of PARENT's checkout and this one, in turns
-    python3 chip_smoke.py --dh ROOT        # kernels A, B, D, H, E, F and P7 of ROOT's checkout, one JSON line
+    python3 chip_smoke.py --turns PARENT   # kernels A-H and P7 of PARENT's checkout and this one, in turns
+    python3 chip_smoke.py --dh ROOT        # kernels A-H and P7 of ROOT's checkout, one JSON line
 
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
@@ -17,7 +17,10 @@ line each:
                     helpers (g++) beside them;
   2. kernels        kernels A-D against their plain PyTorch versions on the
                     card, at the shapes of the Huffman path, held to exact
-                    equality (every stage is integer arithmetic); A and B
+                    equality (every stage is integer arithmetic); C on
+                    the 64 blocks' histograms and seven edge rows
+                    (edge_histograms: sigma 0, 1, 2 and 256, codes of 30
+                    bits, all counts equal, many ties); A and B
                     also on the tile-boundary cases of
                     tests/torch_cases.py (pack_edge_cases,
                     pack_bytes_edge_cases); D also on
@@ -34,16 +37,20 @@ line each:
                     host time by part (checks and allocations, launch,
                     stream wait), and the end-to-end encode / decode rates
                     of the roundtrip;
-  5. shared         kernel G (Moffat phases 1-2, int64) against its plain
-                    version, exactly, on the summed histogram of the 64 MiB
-                    input, on phase 2's 69 histograms and on a row with
-                    weights past 2^31; the 64 MiB input through
+  5. shared         kernel C's int64 instance (the shared table) and
+                    kernel G (Moffat phases 1-2 alone, int64) against their
+                    plain versions, exactly, on the summed histogram of the
+                    64 MiB input, on phase 2's 71 histograms and on a row
+                    with weights past 2^31; the int64 instance raising on a
+                    row whose code needs 33 bits; the 64 MiB input through
                     blockwise(encode(huff),shared=1) on the card, decoded
                     on the card and by the host decoder, block 0's table
-                    holding Kraft's equality, G, A, B and D launched; the
-                    card's container of a 16 MiB prefix equal to the port's
-                    CPU run (plain versions); G's times, and the warm
-                    encode / decode rates with and without shared;
+                    holding Kraft's equality, the table one launch of the
+                    int64 instance, A, B and D launched; the card's
+                    container of a 16 MiB prefix equal to the port's CPU
+                    run (plain versions); both kernels' times, the encode's
+                    stages, and the warm encode / decode rates with and
+                    without shared;
   6. lz78 kernels   kernels E (LZ78 parse) and F (LZW parse) against their
                     plain versions and the host parses, exactly, at the
                     shapes phase 7 launches them with (the whole input as
@@ -114,12 +121,15 @@ failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
 
---turns PARENT compares kernels A, B, D, H, E, F and P7 of two checkouts on
-one card: it runs this script with --dh in a process of its own for PARENT,
-this checkout, this checkout and PARENT, in that order. --dh ROOT builds
-ROOT's kernels and times A and B at phase 2's shapes (their device ms under
-the __global__ names of either design of csrc/pack.cu), D at both of phase
-2's shapes, H on 16 MiB of
+--turns PARENT compares kernels A-H and P7 of two checkouts on one card: it
+runs this script with --dh in a process of its own for PARENT, this
+checkout, this checkout and PARENT, in that order. --dh ROOT builds ROOT's
+kernels and times C on phase 2's histograms, G and the shared table's stage
+(shared_tables, which is C's int64 instance where the checkout has one) on
+their summed row, phase 3's 64 MiB encode through the driver, per-block
+and shared=1, three times each in turns, A and B at phase 2's shapes (device ms under the
+__global__ names of either design of csrc/pack.cu and csrc/tables.cu), D
+at both of phase 2's shapes, H on 16 MiB of
 English, 16 MiB of DNA and a 256 KiB block, phase 10's lcp_device stage on
 the two repetitive texts, F at [6400, 8192] of the English stand-in and in
 its blocks of 1 and 4 MiB, E at [6400, 8192] and [200, 262144], and P7 at
@@ -168,7 +178,7 @@ GATE_BS = (1 * MIB, 2 * MIB, 4 * MIB, 8 * MIB)  # phase 8's block sizes for the 
 FEW_BLOCKS = ((8192, 1), (8192, 16), (8192, 128), (BS, 1), (BS, 2), (BS, 4), (BS, 8),
               *((bs, n) for bs in GATE_BS for n in (1, 2)))
 HUFF_KERNELS = ("pack_blocks", "pack_bytes_blocks", "huffman_tables", "decode_payloads")
-SHARED_KERNELS = ("moffat_phase12", "pack_blocks", "pack_bytes_blocks", "decode_payloads")
+SHARED_KERNELS = ("huffman_tables64", "pack_blocks", "pack_bytes_blocks", "decode_payloads")
 # the least time the card could take: bytes over the HBM3 rate and
 # operations over the rate outside the tensor cores, the larger of the two
 # (NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s in float32
@@ -190,6 +200,11 @@ KERNEL_INFO = {
     "huffman_tables": (
         "tudocomp_tpu_torch/csrc/tables.cu",
         "tudocomp_tpu/ops/pallas_kernels.py:100",
+    ),
+    "huffman_tables64": (
+        "tudocomp_tpu_torch/csrc/tables.cu",
+        "tudocomp_tpu/ops/pallas_kernels.py:100 (kernel C's int64 instance: the shared table, "
+        "which the JAX package builds through :20)",
     ),
     "moffat_phase12": (
         "tudocomp_tpu_torch/csrc/tables.cu",
@@ -234,7 +249,8 @@ KERNEL_INFO = {
 DEVICE_FNS = {
     "pack_blocks": ("tile_widths_kernel<false>", "pack_tiles_kernel<false>"),
     "pack_bytes_blocks": ("tile_widths_kernel<true>", "pack_tiles_kernel<true>"),
-    "huffman_tables": ("huffman_tables_kernel",),
+    "huffman_tables": ("huffman_tables_kernel<int>",),
+    "huffman_tables64": ("huffman_tables_kernel<long>",),
     "moffat_phase12": ("moffat_phase12_kernel",),
     "decode_payloads": ("decode_kernel",),
     "lz78_parse": ("lz78_kernel",),
@@ -255,9 +271,11 @@ DEVICE_FNS = {
     "probe8_d": ("p8_d_kernel",),
 }
 # the names of kernels A's and B's __global__ functions before their
-# one-store-a-word tiles (a tile-sum pass and an atomicOr scatter), so that
-# --dh times a checkout of either design
+# one-store-a-word tiles (a tile-sum pass and an atomicOr scatter), and of
+# kernel C's before its two instances, so that --dh times a checkout of
+# either design
 OLD_DEVICE_FNS = {
+    "huffman_tables": ("huffman_tables_kernel",),
     "pack_blocks": ("tile_sums_kernel<false>", "scatter_kernel<false>"),
     "pack_bytes_blocks": ("tile_sums_kernel<true>", "scatter_kernel<true>"),
 }
@@ -331,6 +349,25 @@ def dna_bytes(n: int):
     return np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(7).integers(0, 4, n)]
 
 
+def edge_histograms():
+    """Phase 2's edge rows for kernel C, [7, 256] int32: no symbol, one, two,
+    all 256 (counts 1..256), Fibonacci counts (codes of 30 bits), all 256
+    with equal counts, and all 256 with counts of 1-3 (many ties)."""
+    import numpy as np
+
+    edge = np.zeros((7, 256), np.int32)
+    edge[1, 65] = 7
+    edge[2, [3, 200]] = [5, 9]
+    edge[3] = np.arange(1, 257)
+    fib = [1, 1]
+    while len(fib) < 31:
+        fib.append(fib[-1] + fib[-2])
+    edge[4, :31] = fib
+    edge[5] = 5
+    edge[6] = np.random.default_rng(3).integers(1, 4, 256)
+    return edge
+
+
 @contextlib.contextmanager
 def host_path():
     """The port's host coders and parses: no device stage runs (an id with
@@ -384,8 +421,12 @@ def kernel_ops(name: str, args) -> int:
         return 8 * args[1].numel()
     if name == "pack_bytes_blocks":  # per live byte: lookups, prefix sum, shifts, ORs
         return 10 * int(args[1].to(torch.int64).sum())
-    if name == "huffman_tables":  # per table: two 256 x 256 ranks, Moffat, depths
-        return args[0].shape[0] * (2 * 256 * 256 + 16 * 254 + 2 * 33 * 256)
+    if name in ("huffman_tables", "huffman_tables64"):
+        # per table of m symbols: a sort of the 256 keys (256 x 8 compares),
+        # Moffat's 2 (m - 2) picks, each internal node's parent and depth
+        # (~16 a node), the scans and the outputs (~4 a symbol)
+        m = (args[0] > 0).sum(1).to(torch.int64)
+        return int((256 * 8 + 2 * (m - 2).clamp(min=0) + 16 * (m - 1).clamp(min=0) + 4 * 256).sum())
     if name == "decode_payloads":  # per stream bit: a shift and a compare per length tried
         return 3 * int(args[1].to(torch.int64).sum())
     if name in ("lz78_parse", "lzw_parse"):  # per byte: hash, probe, compare, insert
@@ -710,6 +751,48 @@ def pack_timing(dev) -> dict:
     return out
 
 
+def table_timing(dev) -> dict:
+    """Kernel C (int32) on phase 2's histograms, and kernel G and the
+    shared table's stage (ht.shared_tables: kernel C's int64 instance, or
+    before it _sort_hist, G, _phase3 and canonical_codes_batch) on the
+    summed row of its 64 blocks, each held to its plain version: wrapper ms
+    (CUDA events), device ms (torch.profiler, under either design's
+    __global__ names; for the stage every kernel it runs), and the stage's
+    host ms, the card synchronized after each call (median and least of
+    50)."""
+    import torch
+
+    from tudocomp_tpu_torch.ops import huffman_torch as ht
+    from tudocomp_tpu_torch.ops import table_kernels as tk
+
+    blocks, n_valid, _ = huff_batch(dev)
+    hists = torch.cat([ht.block_histograms(blocks, n_valid), torch.from_numpy(edge_histograms()).to(dev)])
+    total = hists[:BENCH_BLOCKS].sum(0, dtype=torch.int64)
+    args = ht._sort_hist(total[None])[:2]
+    if max_abs_err(tuple(tk.huffman_tables(hists)), tuple(tk.huffman_tables_plain(hists))):
+        raise AssertionError("kernel C differs from its plain version")
+    if max_abs_err(tk.moffat_phase12(*args), tk.moffat_phase12_plain(*args)):
+        raise AssertionError("kernel G differs from its plain version")
+    if max_abs_err(tuple(ht.shared_tables(total)), tuple(tk.huffman_tables_plain(total[None]))):
+        raise AssertionError("the shared table differs from the plain chain's")
+    c_fns = DEVICE_FNS["huffman_tables"] + OLD_DEVICE_FNS["huffman_tables"]
+    stage = []
+    for _ in range(50):
+        stage.append(synced(lambda: ht.shared_tables(total))[1] * 1e3)
+    stage.sort()
+    return {
+        "huffman_tables": {"rows": hists.shape[0], "ms": cuda_ms(lambda: tk.huffman_tables(hists), max_iters=200),
+                           **device_time(lambda: tk.huffman_tables(hists), None, iters=20, fns=c_fns)},
+        "moffat_phase12": {"ms": cuda_ms(lambda: tk.moffat_phase12(*args), max_iters=200),
+                           **device_time(lambda: tk.moffat_phase12(*args), "moffat_phase12", iters=20)},
+        "shared_tables": {"host_ms_median": stage[len(stage) // 2], "host_ms_least": stage[0],
+                          "ms": cuda_ms(lambda: ht.shared_tables(total), max_iters=200),
+                          "call_device_ms": device_time(lambda: ht.shared_tables(total), None, iters=20)["device_ms"],
+                          **({"huffman_tables64": device_time(lambda: ht.shared_tables(total), "huffman_tables64",
+                                                              iters=20)} if hasattr(tk, "huffman_tables64") else {})},
+    }
+
+
 def pack_host_split(name: str, args) -> dict:
     """Host microseconds of the parts of a kernel A or B wrapper call
     (`name` pack_blocks or pack_bytes_blocks, `args` its arguments): the
@@ -771,13 +854,15 @@ def host_plcp(text, sa):
 
 
 def dh_phase(dev, gpu, package: str) -> dict:
-    """Kernels A, B, D, H, E, F and P7 alone, from the package first on
-    sys.path: A and B at phase 2's shapes (pack_timing); D
+    """Kernels A-H and P7 alone, from the package first on sys.path: C, G
+    and the shared table's stage (table_timing); A and B at phase 2's
+    shapes (pack_timing); D
     on the 1024 x 16 KiB zipf(1.3) streams of phase 2 and the 256 x 256 KiB
     streams of phase 3's input, each held to its input; H on the 16 MiB
     English and DNA texts and a 256 KiB English block, each held to the
     host's PLCP; the lcp_device stage of phase 10's two repetitive 16 MiB
-    texts (host seconds, best of 3, the LCP held to the host's); F at
+    texts (host seconds, best of 3, the LCP held to the host's); phase
+    3's 64 MiB encode through the driver (encode_timing); F at
     [6400, 8192] and in blocks of 1 and 4 MiB, E at [6400, 8192] and
     [200, 262144] (parse_timing), and P7 at each level (p7_timing)."""
     import numpy as np
@@ -789,10 +874,12 @@ def dh_phase(dev, gpu, package: str) -> dict:
     from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
     from tudocomp_tpu_torch.ops import plcp_torch
 
+    tables = table_timing(dev)
     pack = pack_timing(dev)
     torch.cuda.empty_cache()
     dec = {}
     data = np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)]).tobytes()
+    encode = encode_timing(data)
     for shape, raw, bs in (("1024 x 16 KiB", zipf_bytes(0, 16 * MIB).tobytes(), DEC_BS),
                            ("256 x 256 KiB", data, BS)):
         args = decode_inputs(raw, bs, dev)
@@ -835,9 +922,35 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p7 = p7_timing(probes, *probes.probe7_inputs(dev))
     torch.cuda.empty_cache()
     no_jax()
-    return {"phase": "kernels A, B, D, H, E, F and P7", "package": package, **pack, "decode": dec, "plcp": h,
+    return {"phase": "kernels A-H and P7", "package": package, "tables": tables, "encode": encode, **pack,
+            "decode": dec, "plcp": h,
             "lcp_device_stage_best_of_3_s": stage, "lzw_parse": f, "lz78_parse": e, "probe7_pack": p7,
             "card": gpu}
+
+
+def encode_timing(data: bytes) -> dict:
+    """Phase 3's 64 MiB input through driver.compress(device="cuda"),
+    per-block and shared=1: after one encode of each (checked to decode to
+    the input), three warm encodes each in turns (per-block, shared,
+    shared, per-block, per-block, shared), host seconds, the card
+    synchronized after each; and each container's sha256, which two
+    checkouts of the same format share."""
+    import hashlib
+
+    from tudocomp_tpu_torch.driver import compress, decompress
+
+    out = {}
+    for algo in (ALGO, SHARED_ALGO):
+        c = compress(algo, data, device="cuda")
+        if decompress(c, device="cuda") != data:
+            raise AssertionError(f"{algo}: roundtrip differs from the input")
+        out[algo] = {"encode_s": [], "sha256": hashlib.sha256(c).hexdigest()}
+    for algo in (ALGO, SHARED_ALGO, SHARED_ALGO, ALGO, ALGO, SHARED_ALGO):
+        c, sec = synced(lambda: compress(algo, data, device="cuda"))
+        if hashlib.sha256(c).hexdigest() != out[algo]["sha256"]:
+            raise AssertionError(f"{algo}: a warm encode gave another container")
+        out[algo]["encode_s"].append(sec)
+    return out
 
 
 def parse_timing(dev, kname: str, sizes) -> dict:
@@ -956,15 +1069,7 @@ def main() -> int:
     blocks = torch.from_numpy(batch).to(dev)
     n_valid = torch.full((BENCH_BLOCKS,), BS, dtype=torch.int32, device=dev)
     hists = ht.block_histograms(blocks, n_valid)
-    edge = np.zeros((5, 256), np.int32)
-    edge[1, 65] = 7  # one symbol
-    edge[2, [3, 200]] = [5, 9]  # two symbols
-    edge[3] = np.arange(1, 257)  # all 256
-    fib = [1, 1]
-    while len(fib) < 31:
-        fib.append(fib[-1] + fib[-2])
-    edge[4, :31] = fib  # codes of 30 bits
-    hists_all = torch.cat([hists, torch.from_numpy(edge).to(dev)])
+    hists_all = torch.cat([hists, torch.from_numpy(edge_histograms()).to(dev)])
 
     errs, cases = {}, {}
     tabs = tk.huffman_tables(hists_all)
@@ -1078,10 +1183,8 @@ def main() -> int:
     del back, container, ref
 
     # 5. the shared table -----------------------------------------------------
-    err_g, timing_g, launches_g = shared_phase(data, hists_all, dev, gpu)
-    errs["moffat_phase12"] = err_g
-    timing["moffat_phase12"] = timing_g
-    launches["moffat_phase12"] = launches_g
+    for table, new in zip((errs, timing, launches), shared_phase(data, hists_all, dev, gpu)):
+        table.update(new)
     del data
     torch.cuda.empty_cache()
 
@@ -1146,7 +1249,7 @@ def encode_stages(data: bytes, dev, shared: bool) -> dict:
     if shared:
         total, st["histograms, summed"] = synced(
             lambda: sum(ht.block_histograms(b, nv).sum(0, dtype=torch.int64) for b, nv in batches))
-        tables, st["one table (sort, kernel G, phase 3, codes)"] = synced(lambda: ht.shared_tables(total))
+        tables, st["one table (kernel C, int64)"] = synced(lambda: ht.shared_tables(total))
         out, st["encode (kernels A, B)"] = synced(
             lambda: [ht.encode_blocks(b, nv, n_words, shared_table=tables) for b, nv in batches])
     else:
@@ -1168,12 +1271,14 @@ def encode_stages(data: bytes, dev, shared: bool) -> dict:
     return st
 
 
-def shared_phase(data: bytes, hists69, dev, gpu):
-    """Phase 5: kernel G against its plain version on three inputs, the
-    256 MiB shared-table roundtrip on the card and through the host
-    decoder, the 16 MiB prefix against the port's CPU run, G's times, and
-    the warm end-to-end rates with and without shared. Returns (G's
-    max_abs_err, its line entries, its launches in the roundtrip)."""
+def shared_phase(data: bytes, hists71, dev, gpu):
+    """Phase 5: kernel C's int64 instance and kernel G against their plain
+    versions on three inputs, the instance's flag on a row whose code needs
+    33 bits, the 64 MiB shared-table roundtrip on the card and through the
+    host decoder, the 16 MiB prefix against the port's CPU run, both
+    kernels' times, and the warm end-to-end rates with and without shared.
+    Returns ({kernel: max_abs_err}, {kernel: line entries}, {kernel:
+    launches in the roundtrip}) for huffman_tables64 and moffat_phase12."""
     import numpy as np
     import torch
 
@@ -1191,25 +1296,47 @@ def shared_phase(data: bytes, hists69, dev, gpu):
     del b, nv
     cases = {
         "summed [1, 256]": total[None],
-        "phase 2's [69, 256]": hists69,
+        "phase 2's [71, 256]": hists71.to(torch.int64),
         "past 2^31 [1, 256]": total[None] * 1024,
     }
-    report, err = {}, 0
-    for name, hists in cases.items():
-        args = ht._sort_hist(hists)[:2]
-        got = tk.moffat_phase12(*args)
-        e = max_abs_err(got, tk.moffat_phase12_plain(*args))
-        err = max(err, e)
-        report[name] = {"max_abs_err": e, "max_weight": int(args[0].max()), "sigma": int(args[1].max())}
     if int(cases["past 2^31 [1, 256]"].max()) < 1 << 31:
         raise AssertionError("the third row has no weight past 2^31")
-    if err:
-        raise AssertionError(f"kernel G differs from its plain version: {report}")
-    args = ht._sort_hist(cases["summed [1, 256]"])[:2]
-    line = {"ms": cuda_ms(lambda: tk.moffat_phase12(*args)),
+    report, errs = {}, {"huffman_tables64": 0, "moffat_phase12": 0}
+    for name, hists in cases.items():
+        args = ht._sort_hist(hists)[:2]
+        e_g = max_abs_err(tk.moffat_phase12(*args), tk.moffat_phase12_plain(*args))
+        e_c = max_abs_err(tuple(tk.huffman_tables64(hists)), tuple(tk.huffman_tables_plain(hists)))
+        errs = {"huffman_tables64": max(errs["huffman_tables64"], e_c), "moffat_phase12": max(errs["moffat_phase12"], e_g)}
+        report[name] = {"max_abs_err": {"huffman_tables64": e_c, "moffat_phase12": e_g},
+                        "max_weight": int(args[0].max()), "sigma": int(args[1].max())}
+    if any(errs.values()):
+        raise AssertionError(f"kernel C's int64 instance or kernel G differs from its plain version: {report}")
+    deep = torch.zeros((1, 256), dtype=torch.int64, device=dev)
+    fib = [1, 1]
+    while len(fib) < 34:
+        fib.append(fib[-1] + fib[-2])
+    deep[0, :34] = torch.tensor(fib)  # a caterpillar tree: codes of 33 bits
+    try:
+        tk.huffman_tables64(deep)
+        raise AssertionError("the int64 instance took a row whose code needs 33 bits")
+    except ValueError as e:
+        if "33-bit codes" not in str(e):
+            raise
+        report["33-bit row"] = str(e)
+    summed = cases["summed [1, 256]"]
+    args = ht._sort_hist(summed)[:2]
+    lines = {
+        "huffman_tables64": {
+            "ms": cuda_ms(lambda: tk.huffman_tables64(summed)),
+            **device_time(lambda: tk.huffman_tables64(summed), "huffman_tables64"),
+            "plain_ms": cuda_ms(lambda: tk.huffman_tables_plain(summed), budget_ms=2000.0, max_iters=10),
+            **bound("huffman_tables64", (summed,), tuple(tk.huffman_tables64(summed)))},
+        "moffat_phase12": {
+            "ms": cuda_ms(lambda: tk.moffat_phase12(*args)),
             **device_time(lambda: tk.moffat_phase12(*args), "moffat_phase12"),
             "plain_ms": cuda_ms(lambda: tk.moffat_phase12_plain(*args), budget_ms=2000.0, max_iters=10),
-            **bound("moffat_phase12", args, tk.moffat_phase12(*args))}
+            **bound("moffat_phase12", args, tk.moffat_phase12(*args))},
+    }
 
     # the roundtrip through the public entry points
     kernels.reset_counts()
@@ -1221,6 +1348,8 @@ def shared_phase(data: bytes, hists69, dev, gpu):
     missing = [k for k in SHARED_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"shared: kernels never launched on the path: {missing}")
+    if launches["huffman_tables64"] != 1 or launches["moffat_phase12"] or launches["huffman_tables"]:
+        raise AssertionError(f"shared: the table took other launches than one of the int64 instance: {launches}")
     if not block0_kraft(container):
         raise AssertionError("shared: block 0's code lengths break Kraft's equality")
     host_back, host_dec_s = synced(lambda: ref_decompress(container))
@@ -1248,12 +1377,12 @@ def shared_phase(data: bytes, hists69, dev, gpu):
         r["decode_GBps"].append(len(data) / dd / 1e9)
         del c, d
     stages = {"per-block": encode_stages(data, dev, False), "shared": encode_stages(data, dev, True)}
-    emit({"phase": "shared", "moffat_phase12": report, "moffat_phase12_line": line, "encode_stages": stages,
+    emit({"phase": "shared", "tables": report, "kernels": lines, "encode_stages": stages,
           "launches": launches, "bytes": len(data), "container_bytes": len(container),
           "ratio": len(container) / len(data), "first_encode_s": enc_s, "first_decode_s": dec_s,
           "host_decode_s": host_dec_s, "input_to_card_s": h2d_s,
           "prefix_bytes": len(prefix), "prefix_cpu_encode_s": cpu_s, "warm": rates, "card": gpu})
-    return err, line, launches["moffat_phase12"]
+    return errs, lines, {k: launches[k] for k in lines}
 
 
 def _parse_fns(kernel: str):

@@ -52,6 +52,37 @@ def test_huffman_tables_kernel(dev):
     _equal(tk.huffman_tables(hists), tk.huffman_tables_plain(hists))
 
 
+@pytest.mark.parametrize("instance", ["int32", "int64"])
+def test_table_kernel_edge_rows(dev, instance):
+    """Kernel C's int32 and int64 instances against their plain version on
+    tc.table_rows (chip_smoke.py's edge rows, all-equal and tie-heavy rows):
+    the int32 instance on the rows its key takes, the int64 one on all but
+    the row whose code needs 33 bits."""
+    rows = tc.table_rows()
+    names = tc.INT32_ROWS if instance == "int32" else [n for n in rows if n != "fibonacci 33-bit"]
+    hists = torch.from_numpy(np.stack([rows[n] for n in names])).to(dev)
+    fn = tk.huffman_tables if instance == "int32" else tk.huffman_tables64
+    kernels.reset_counts()
+    got = fn(hists)
+    torch.cuda.synchronize()
+    assert kernels.counts()["huffman_tables" if instance == "int32" else "huffman_tables64"] == 1
+    _equal(got, tk.huffman_tables_plain(hists))
+
+
+def test_table_kernel64_raises_past_32_bits(dev):
+    """The int64 instance reports a 33-bit code through the flag word with
+    the plain chain's ValueError, and the next call is right."""
+    rows = tc.table_rows()
+    hists = torch.from_numpy(np.stack([rows["zipf 4096"], rows["fibonacci 33-bit"]])).to(dev)
+    with pytest.raises(ValueError, match="33-bit codes"):
+        tk.huffman_tables_plain(hists)
+    with pytest.raises(ValueError, match="33-bit codes"):
+        tk.huffman_tables64(hists)
+    with pytest.raises(ValueError, match="33-bit codes"):
+        ht.shared_tables(hists[1])
+    _equal(tk.huffman_tables64(hists[:1]), tk.huffman_tables_plain(hists[:1]))
+
+
 def _dev_i32(a, dev):
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
 
@@ -266,7 +297,7 @@ def test_lz78_roundtrip_on_the_card(dev, algo, monkeypatch):
 
 def test_moffat_phase12_kernel(dev):
     """Kernel G against its plain version: sorted zipf weights, the edge
-    rows of sigma 0, 1, 2 and 256, and weights past 2^31."""
+    rows of sigma 0, 1, 2 and 256, weights past 2^31, and tc.table_rows."""
     rng = np.random.default_rng(6)
     hists = np.zeros((6, 256), np.int64)
     hists[0] = np.bincount(rng.zipf(1.3, 1 << 20).clip(0, 255), minlength=256)
@@ -274,6 +305,7 @@ def test_moffat_phase12_kernel(dev):
     hists[3, [3, 200]] = [5, 9]
     hists[4] = np.arange(1, 257)
     hists[5] = hists[0] * (1 << 22)
+    hists = np.concatenate([hists, np.stack(list(tc.table_rows().values()))])
     weights, sigma, _ = ht._sort_hist(torch.from_numpy(hists).to(dev))
     sigma[1] = 300  # clamped to 256 by both versions
     kernels.reset_counts()
@@ -299,8 +331,9 @@ def test_shared_roundtrip_on_the_card(dev, data, monkeypatch):
     c = compress(algo, raw, device="cuda")
     assert decompress(c, device="cuda") == raw
     launches = kernels.counts()
-    assert all(launches[k] for k in ("moffat_phase12", "pack_blocks", "pack_bytes_blocks", "decode_payloads"))
-    assert launches["huffman_tables"] == 0
+    assert all(launches[k] for k in ("pack_blocks", "pack_bytes_blocks", "decode_payloads"))
+    assert launches["huffman_tables64"] == 1  # the one table, one launch
+    assert launches["huffman_tables"] == launches["moffat_phase12"] == 0
     assert c == compress(algo, raw, device="cpu")  # the plain versions
     assert decompress(c, device="cpu") == raw  # the host decoder
 

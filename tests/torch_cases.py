@@ -2,6 +2,7 @@
 (no JAX here).
 
 Kernels A and B: the cases at the boundaries of their tile schedule.
+Kernels C and G: histogram rows at the edges of the Moffat chain.
 Kernel D: one Huffman stream per case, as the tables and words
 parse_payload_tables gives (or made by hand where a payload cannot say it),
 with the bytes it must decode to. Kernel H: sentinel-terminated texts.
@@ -327,3 +328,49 @@ def pack_bytes_edge_cases(tile: int = bc.TILE_B) -> dict:
     nv = np.array([bs, tile, 17, 0], np.int32)
     cases["shared-table"] = (blk, nv, tv, tb, hw, hb, n_words(tv, tb, blk, nv, hb))
     return cases
+
+
+def fibonacci(n: int) -> list:
+    fib = [1, 1]
+    while len(fib) < n:
+        fib.append(fib[-1] + fib[-2])
+    return fib[:n]
+
+
+def table_rows() -> dict:
+    """name -> a [256] int64 histogram: sigma 0, 1, 2, 3, 255 and 256; all
+    counts equal; 1..256; Fibonacci counts over 31-34 symbols (codes of 30,
+    31, 32 and 33 bits); zipf(1.3) rows; small counts with many ties; and
+    rows past 2^31. The codes of "fibonacci 33-bit" are too long for one
+    table. Kernel C's int32 instance takes the rows whose counts stay
+    below 2^21, where its (count << 9) | symbol key stays below the absent
+    symbols' key: INT32_ROWS."""
+    rng = np.random.default_rng(12)
+    rows = {}
+
+    def row(name, sym, counts):
+        h = np.zeros(256, np.int64)
+        h[sym] = counts
+        rows[name] = h
+
+    row("sigma 0", [], [])
+    row("sigma 1", [65], [7])
+    row("sigma 2", [3, 200], [5, 9])
+    row("sigma 3", [0, 9, 255], [4, 4, 4])
+    row("sigma 255", np.arange(1, 256), rng.integers(1, 1000, 255))
+    row("sigma 256", np.arange(256), rng.integers(1, 1 << 16, 256))
+    row("all equal", np.arange(256), 5)
+    row("1..256", np.arange(256), np.arange(1, 257))
+    for n, bits in ((31, 30), (32, 31), (33, 32), (34, 33)):
+        row(f"fibonacci {bits}-bit", rng.permutation(256)[:n], fibonacci(n))
+    for size in (1 << 12, 1 << 18):
+        row(f"zipf {size}", np.arange(256), np.bincount(rng.zipf(1.3, size).clip(0, 255), minlength=256))
+    row("ties 1-3", np.arange(256), rng.integers(1, 4, 256))
+    row("ties 1-2 sparse", rng.permutation(256)[:77], rng.integers(1, 3, 77))
+    row("ties powers of 2", np.arange(256), 1 << rng.integers(0, 6, 256))
+    row("past 2^31", np.arange(256), rng.integers(1, 1 << 16, 256) << 20)
+    row("zipf past 2^31", np.arange(256), rows["zipf 262144"] << 16)
+    return rows
+
+
+INT32_ROWS = [n for n, h in table_rows().items() if h.max() < 1 << 21]

@@ -61,6 +61,7 @@ KERNELS = {
         [_P, _P, _P, _P, _L, _P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P],
     ),
     "tdc_huffman_tables": ("huffman_tables", [_P, _I, _P, _P, _P, _P, _P, _P, _P]),
+    "tdc_huffman_tables64": ("huffman_tables64", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
     "tdc_moffat_phase12": ("moffat_phase12", [_P, _P, _I, _P, _P]),
     "tdc_decode_payloads": ("decode_payloads", [_P, _L, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P]),
     "tdc_lz78_parse": ("lz78_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P, _P]),

@@ -14,8 +14,8 @@ Stages, all batched over blocks:
   5. fused codeword lookup + pack after header   (kernel B, bitpack_cuda)
 
 With a shared table (shared_tables) stage 2 runs once, on the histogram
-summed over all blocks: _sort_hist (plain), Moffat phases 1-2 (kernel G,
-table_kernels.moffat_phase12), _phase3 and canonical_codes_batch (plain).
+summed over all blocks: one launch of kernel C's int64 instance
+(table_kernels.huffman_tables64).
 
 code_lengths_batch and canonical_codes_batch are the plain table chain,
 kernel C's reference. Blocks are capped at MAX_BLOCK = 2 MiB: a depth-d code
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .bitpack_cuda import pack_blocks, pack_bytes_blocks
-from .table_kernels import HuffmanTables, huffman_tables, moffat_phase12
+from .table_kernels import MAX_LEN, HuffmanTables, depth_error, huffman_tables, huffman_tables64, moffat_phase12_plain
 
 __all__ = [
     "MAX_BLOCK",
@@ -48,7 +48,6 @@ __all__ = [
 ]
 
 MAX_BLOCK = 1 << 21  # keeps max code length <= 31 (Fibonacci bound)
-MAX_LEN = 32  # code length slots 1..MAX_LEN
 N_TABLE_TOKENS = 1 + 4 + 4 * MAX_LEN + 4 + 256
 _BIG = 0x3FFFFFFF
 _ABSENT = 1 << 62  # above every (count << 9) | symbol key of counts below 2^53
@@ -97,10 +96,7 @@ def _check_depth(A, sigma) -> None:
         return
     longest = int(torch.where(internal, A, 0).max()) + 1
     if longest > MAX_LEN:
-        raise ValueError(
-            f"the Huffman code needs {longest}-bit codes, more than the {MAX_LEN} bits the pack and "
-            "decode kernels take: the histogram is too skewed for one table"
-        )
+        raise depth_error(longest)
 
 
 def _phase3(A, rank, sigma):
@@ -124,16 +120,16 @@ def _phase3(A, rank, sigma):
     return torch.where((m >= 2)[:, None], lengths, 0).to(torch.int32)
 
 
-def code_lengths_batch(hists, phase12=moffat_phase12):
+def code_lengths_batch(hists):
     """[B, 256] histograms (any integer type, counts below 2^53) -> [B, 256]
     int32 code lengths (0 = absent).
 
-    _sort_hist, Moffat/Katajainen phases 1-2 (`phase12`: kernel G, which
-    takes its plain version for CPU tensors; ties prefer the leaf), then
-    _phase3. Blocks with sigma <= 1 get all zeros. Raises ValueError where
-    a code would exceed MAX_LEN bits."""
+    _sort_hist, Moffat/Katajainen phases 1-2 (moffat_phase12_plain, kernel
+    G's plain version; ties prefer the leaf), then _phase3, all in plain
+    PyTorch on the tensors' device. Blocks with sigma <= 1 get all zeros.
+    Raises ValueError where a code would exceed MAX_LEN bits."""
     weights, sigma, rank = _sort_hist(hists)
-    A = phase12(weights, sigma)
+    A = moffat_phase12_plain(weights, sigma)
     _check_depth(A, sigma)
     return _phase3(A, rank, sigma)
 
@@ -269,12 +265,12 @@ def encode_blocks_with_hists(blocks, n_valid, hists, n_words: int):
 
 
 def shared_tables(hist) -> HuffmanTables:
-    """One table from a [256] histogram summed over blocks: the lengths by
-    code_lengths_batch on a batch of one (kernel G on a CUDA tensor), then
-    canonical_codes_batch once. A HuffmanTables of batch 1; raises
-    ValueError where the code would need more than 32 bits."""
-    lengths = code_lengths_batch(hist.reshape(1, 256))
-    return HuffmanTables(lengths, *canonical_codes_batch(lengths))
+    """One table from a [256] histogram summed over blocks (counts below
+    2^53): huffman_tables64 on a batch of one, kernel C's int64 instance
+    on a CUDA tensor, its plain chain on a CPU tensor. A HuffmanTables of
+    batch 1; raises ValueError where the code would need more than 32
+    bits."""
+    return huffman_tables64(hist.reshape(1, 256))
 
 
 def encode_blocks(blocks, n_valid, n_words: int, shared_table: HuffmanTables | None = None):

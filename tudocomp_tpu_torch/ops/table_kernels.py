@@ -4,18 +4,23 @@
 block's code lengths, canonical codewords, numl, length-ordered symbols,
 sigma and longest in one launch. It replaces
 tudocomp_tpu/ops/pallas_kernels.py:huffman_tables_pallas. Its plain
-version is huffman_torch's code_lengths_batch (with moffat_phase12_plain)
-followed by canonical_codes_batch, the same chain the JAX package holds
-its kernel to. Counts must stay below 2^21 (blocks of at most MAX_BLOCK
+version is huffman_torch's code_lengths_batch followed by
+canonical_codes_batch, the same chain the JAX package holds its kernel to. Counts must stay below 2^21 (blocks of at most MAX_BLOCK
 bytes), where kernel C's int32 (count << 9) | symbol sort key is exact.
 
-`moffat_phase12` (kernel G) runs Moffat/Katajainen phases 1 and 2 on
-[B, 256] sorted int64 weights: the table of the shared-table path, built
-from a histogram summed over all blocks, whose counts pass 2^31 once the
-input passes 2 GiB. It replaces pallas_kernels.py:moffat_phase12
-(_moffat_lockstep_kernel). Both CUDA sources are csrc/tables.cu, and both
-kernels walk the phases through one function, so they agree by
-construction.
+`huffman_tables64` is kernel C's int64 instance: the same tables from
+histograms whose counts reach 2^53, as the shared-table path's histogram
+summed over all blocks does (it passes 2^31 once the input passes 2 GiB).
+It ranks by the int64 key and reports a code longer than 32 bits through
+the launch path's mapped flag word, raising the ValueError of
+code_lengths_batch; its plain version is the same chain as kernel C's.
+
+`moffat_phase12` (kernel G) runs Moffat/Katajainen phases 1 and 2 alone
+on [B, 256] sorted int64 weights. It replaces
+pallas_kernels.py:moffat_phase12 (_moffat_lockstep_kernel); no user path
+calls it since huffman_tables64 builds the shared table in one launch.
+All three live in csrc/tables.cu and walk the phases through one
+template, so they agree by construction.
 """
 
 from __future__ import annotations
@@ -27,7 +32,17 @@ import torch
 from .. import kernels
 from .bitpack_cuda import on_cuda
 
-__all__ = ["HuffmanTables", "huffman_tables", "huffman_tables_plain", "moffat_phase12", "moffat_phase12_plain"]
+__all__ = [
+    "HuffmanTables",
+    "depth_error",
+    "huffman_tables",
+    "huffman_tables64",
+    "huffman_tables_plain",
+    "moffat_phase12",
+    "moffat_phase12_plain",
+]
+
+MAX_LEN = 32  # code length slots 1..MAX_LEN: the longest code the pack and decode kernels take
 
 
 class HuffmanTables(NamedTuple):
@@ -42,11 +57,27 @@ class HuffmanTables(NamedTuple):
 
 
 def huffman_tables_plain(hists) -> HuffmanTables:
-    """Plain version of huffman_tables."""
+    """Plain version of huffman_tables and huffman_tables64 (code_lengths_batch
+    raises past MAX_LEN bits)."""
     from .huffman_torch import canonical_codes_batch, code_lengths_batch
 
-    lengths = code_lengths_batch(hists, moffat_phase12_plain)
+    lengths = code_lengths_batch(hists)
     return HuffmanTables(lengths, *canonical_codes_batch(lengths))
+
+
+def depth_error(longest: int) -> ValueError:
+    """The error for a code that needs `longest` > MAX_LEN bits."""
+    return ValueError(
+        f"the Huffman code needs {longest}-bit codes, more than the {MAX_LEN} bits the pack and "
+        "decode kernels take: the histogram is too skewed for one table"
+    )
+
+
+def _outputs(B: int, dev) -> HuffmanTables:
+    i32 = torch.int32
+    sq = [torch.empty((B, 256), dtype=i32, device=dev) for _ in range(3)]
+    return HuffmanTables(sq[0], sq[1], torch.empty((B, MAX_LEN), dtype=i32, device=dev), sq[2],
+                         torch.empty(B, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev))
 
 
 def huffman_tables(hists) -> HuffmanTables:
@@ -57,17 +88,24 @@ def huffman_tables(hists) -> HuffmanTables:
     if not on_cuda(hists):
         return huffman_tables_plain(hists)
     B = hists.shape[0]
-    dev = hists.device
-    out = [torch.empty((B, 256), dtype=torch.int32, device=dev) for _ in range(3)]
-    numl = torch.empty((B, 32), dtype=torch.int32, device=dev)
-    sigma = torch.empty(B, dtype=torch.int32, device=dev)
-    longest = torch.empty(B, dtype=torch.int32, device=dev)
+    t = _outputs(B, hists.device)
     if B:
-        kernels.launch(
-            "tdc_huffman_tables", hists.to(torch.int32).contiguous(), B,
-            out[0], out[1], numl, out[2], sigma, longest,
-        )
-    return HuffmanTables(out[0], out[1], numl, out[2], sigma, longest)
+        kernels.launch("tdc_huffman_tables", hists.to(torch.int32).contiguous(), B, *t)
+    return t
+
+
+def huffman_tables64(hists) -> HuffmanTables:
+    """[B, 256] histograms of counts below 2^53 -> their HuffmanTables, as
+    huffman_tables gives them; raises ValueError (depth_error) where a
+    code would need more than MAX_LEN bits. On a CUDA tensor: kernel C's
+    int64 instance, one launch and one wait."""
+    if not on_cuda(hists):
+        return huffman_tables_plain(hists)
+    B = hists.shape[0]
+    t = _outputs(B, hists.device)
+    if B and kernels.launch_flagged("tdc_huffman_tables64", hists.to(torch.int64).contiguous(), B, *t):
+        raise depth_error(int(t.longest.max()))
+    return t
 
 
 def _check_moffat(weights, sigma) -> None:

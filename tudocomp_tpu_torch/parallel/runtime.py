@@ -8,8 +8,9 @@ byte-identical to the JAX package's. There is no mesh.
 
 With a shared table, the one table covers the whole input, as the JAX
 package's psum'd histogram does: pass 1 copies every batch to the device
-and sums its histograms in int64, pass 2 builds the table once (kernel G)
-and encodes the batches, which stayed on the device between the passes.
+and sums its histograms in int64, pass 2 builds the table once (one
+launch of kernel C's int64 instance) and encodes the batches, which
+stayed on the device between the passes.
 
 blockwise_lzss_compress runs lzss_lcp(coder=huff) on every block, one
 after another; with a shared table the literal feeds' histograms are
