@@ -8,8 +8,9 @@
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
 device="cpu") and decompress(container, device="cpu") with
-TDC_DEVICE_HUFF=0, TDC_DEVICE_LZ78=0, TDC_DEVICE_SA=0 and TDC_DEVICE_LZSS=0,
-which run the port's copies of the host coders, parses and suffix stack
+TDC_DEVICE_HUFF=0, TDC_DEVICE_LZ78=0, TDC_DEVICE_SA=0, TDC_DEVICE_LZSS=0 and
+TDC_DEVICE_ESP=0, which run the port's copies of the host coders, parses,
+suffix stack and ESP rounds
 (the CPU tests hold those byte-equal to the JAX package). Phases, one JSON
 line each:
   1. build          compile the CUDA kernels from tudocomp_tpu_torch/csrc,
@@ -114,6 +115,29 @@ line each:
                     (TextDS takes its LCP from it where the card built the
                     SA), its launches counted by the size of their text; the
                     stages of the 16 MiB encode on the card and on the host.
+ 12. esp kernel     kernel I (the ESP adjust pass's queue machine) against
+                    its plain version, exactly, on the spans of each of the 9
+                    device rounds of 16 MiB of bench.py's English stand-in
+                    (synth_english, seed 7: bench.py's device_esp_16MiB input)
+                    and on tests/torch_cases.py's edge spans (widths 1-260,
+                    all ones, alternating types, no spans); each round's
+                    blocks, spans, widest span, wrapper ms (CUDA events,
+                    fresh copies of the blocks made outside the events: it
+                    works in place), device ms, plain ms and bound;
+ 13. esp roundtrip  esp and esp(slp_coder=sorted(d_coding=arith)) on those
+                    16 MiB, and esp and esp(slp_coder=sorted) on 1 MiB of the
+                    same text (bench.py's esp cells), through driver.compress /
+                    decompress(device="cuda"): each container equals the host
+                    path's (TDC_DEVICE_ESP=0), both decoders return the input,
+                    kernel I launched where the gate takes the card, the 1 MiB
+                    ratios BENCH_r05's 48.64% and 31.48%; then the 16 MiB
+                    encode's StatPhase spans on the card and on the host
+                    (the two containers equal), the 1 MiB sorted encode's
+                    spans on the card (its succinct coding's steps among
+                    them), the device rounds against the
+                    host rounds from 64 KiB to 16 MiB (the numbers behind
+                    device.ESP_MIN_N) and the 16 MiB grammar at three
+                    host-finish thresholds.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
 its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
@@ -169,6 +193,11 @@ LZ78_ALGOS = {  # id -> (block size, the kernel of its parse)
 }
 LZSS_BYTES = 16 * MIB  # BASELINE config 3's and BENCH_r05's lzss shapes
 LZSS_ALGO = "lzss_lcp(coder=huff)"
+ESP_BYTES = 16 * MIB  # bench.py's device_esp_16MiB input: synth_english, seed 7
+ESP_ALGOS = ("esp", "esp(slp_coder=sorted(d_coding=arith))")  # BASELINE config 4 at 16 MiB
+ESP_RATIOS_1MIB = {"esp": 48.64, "esp(slp_coder=sorted)": 31.48}  # bench.py:337-338, BENCH_r05's ratio_pct
+ESP_THRESHOLDS = (1 << 12, 1 << 15, 1 << 18)  # esp_grammar_device's host-finish threshold (default 1 << 15)
+ESP_SWEEP = (64 << 10, 128 << 10, 256 << 10, 512 << 10, MIB, 4 * MIB, 16 * MIB)  # sizes behind ESP_MIN_N
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
 LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
 LZW_PLAIN_PREFIX = 1 << 16  # bytes of those blocks the plain version steps through
@@ -226,6 +255,11 @@ KERNEL_INFO = {
         "tudocomp_tpu_torch/csrc/plcp.cu",
         "tudocomp_tpu/ops/plcp_jax.py:29 (plain JAX there, no Pallas kernel: a kernel the port added)",
     ),
+    "esp_adjust_windows": (
+        "tudocomp_tpu_torch/csrc/esp.cu",
+        "tudocomp_tpu/ops/esp_jax.py:87 (_sim_window under _adjust_dev; plain JAX there, no Pallas kernel: "
+        "a kernel the port added)",
+    ),
     **{
         name: ("tudocomp_tpu_torch/csrc/probes.cu", replaces)
         for name, replaces in {
@@ -256,6 +290,7 @@ DEVICE_FNS = {
     "lz78_parse": ("lz78_kernel",),
     "lzw_parse": ("lzw_kernel",),
     "plcp_segments": ("phi_kernel", "plcp_upper_kernel", "plcp_level_kernel"),
+    "esp_adjust_windows": ("esp_adjust_kernel",),
     "probe3_gather": ("gather_kernel",),
     "probe6_roll_lane": ("p6_roll_lane_kernel",),
     "probe6_roll_sublane": ("p6_roll_sublane_kernel",),
@@ -339,7 +374,7 @@ def english_bytes(n: int):
     return np.frombuffer(b"".join(parts)[:n], np.uint8)
 
 
-GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS")
+GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_ESP")
 
 
 def dna_bytes(n: int):
@@ -435,6 +470,8 @@ def kernel_ops(name: str, args) -> int:
         return 16 * int((args[1].to(torch.int64) - 2).clamp(min=0).sum())
     if name == "plcp_segments":  # per position: a phi read, ~2 byte compares, a store
         return 8 * args[0].numel()
+    if name == "esp_adjust_windows":  # per span block: ~3 queue steps of ~10 compares and moves
+        return 30 * span_blocks(args)
     if name == "probe3_gather":  # per index: a bounds check and a load
         return 3 * args[1].numel()
     if name == "probe7_pack":  # per token, as kernel A, plus the segmented scan
@@ -463,11 +500,20 @@ def kernel_bytes(name: str, args, out) -> int:
         _, n_valid, tbl_v, tbl_nb, _, hdr_bits, _ = args
         live = int(n_valid.to(torch.int64).sum())
         return live + nbytes((n_valid, tbl_v, tbl_nb, hdr_bits)) + filled(hdr_bits) + filled(out[1]) + nbytes(out[1])
+    if name == "esp_adjust_windows":  # the spans' (len, type) pairs read and written, their ws, we and ns
+        return 16 * span_blocks(args) + 8 * int(args[4][0]) + 4
     if name == "probe3_gather":  # idx read, out written, the words of S that idx names read once
         S, idx = args
         rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * S.shape[1]
         return nbytes(idx) + nbytes(out) + 4 * int(torch.unique(idx.to(torch.int64) + rows).numel())
     return nbytes(args) + nbytes(out)
+
+
+def span_blocks(args) -> int:
+    """Blocks in the live spans of kernel I's arguments (lens, typs, ws, we, ns)."""
+    ws, we, ns = args[2:]
+    k = int(ns[0])
+    return int((we[:k] - ws[:k]).sum())
 
 
 def table_bytes(name: str, args, out) -> dict:
@@ -1204,6 +1250,14 @@ def main() -> int:
     launches_h = lzss_roundtrip_phase(text[:LZSS_BYTES], dev, gpu)
     launches["plcp_segments"] = sum(launches_h.values())
     timing["plcp_segments"]["launches_by_shape"] = launches_h
+    del text
+    torch.cuda.empty_cache()
+
+    # 12-13. ESP: kernel I, the ids through the driver, the stages and the gate
+    english = english_bytes(ESP_BYTES)
+    for table, new in zip((errs, timing), esp_kernel_phase(english, dev, gpu)):
+        table.update(new)
+    launches["esp_adjust_windows"] = esp_roundtrip_phase(english, dev, gpu)
 
     print(gpu)
     emit({"kernels": [
@@ -2209,6 +2263,216 @@ def lzss_roundtrip_phase(english, dev, gpu) -> dict:
     emit({"phase": "lzss stages", "algo": LZSS_ALGO, "bytes": LZSS_BYTES, "stages": stages,
           "kernel_H_launches_by_shape": launches_h, "card": gpu})
     return launches_h
+
+
+def padded_input(data, dev):
+    """data (uint8) as the first ESP round's int32 [size] on the card, its
+    padded size and the round's length and alphabet, as esp_grammar_device
+    starts."""
+    import torch
+
+    from tudocomp_tpu_torch.ops.esp_torch import padded
+
+    size = 1 << (len(data) - 1).bit_length()
+    scalar = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    return padded(data, size, dev), size, scalar(len(data)), scalar(256)
+
+
+def fresh_event_ms(fn, fresh, iters: int = 20) -> float:
+    """CUDA-event ms of fn(*fresh()) for a function that works in place:
+    the events enclose fn alone, each call on fresh copies made before its
+    first event; the mean over iters calls."""
+    import torch
+
+    pairs = []
+    for _ in range(iters):
+        args = fresh()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def esp_kernel_phase(english, dev, gpu):
+    """Phase 12: kernel I against its plain version, exactly, on the spans of
+    every device round of the 16 MiB input and on tests/torch_cases.py's
+    edge spans; its times on each round. Returns (errs, timing) for the
+    kernels line: the first round, the largest launch of the path."""
+    import torch
+
+    from tests import torch_cases
+    from tudocomp_tpu_torch.ops import esp_torch as et
+    from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
+
+    name = "esp_adjust_windows"
+    src, size, m, alphabet = padded_input(english[:ESP_BYTES], dev)
+    err, rounds = 0, []
+    while size // 2 >= ESP_THRESHOLDS[1]:
+        lens, typs, nb = et.stage_blocks(src, m, alphabet)
+        spans = et.adjust_spans(lens, nb)
+
+        def fresh(lens=lens, typs=typs, spans=spans):  # the wrappers adjust (lens, typs) in place
+            return (lens.clone(), typs.clone(), *spans)
+
+        got, plain = fresh(), fresh()
+        esp_adjust_windows(*got)
+        _, plain_ms = cuda_once(lambda: esp_adjust_windows_plain(*plain))
+        e = max_abs_err(got[:2], plain[:2])
+        err = max(err, e)
+        widths = (spans[1] - spans[0])[: int(spans[2][0])]
+        rounds.append({
+            "size": size, "blocks": int(nb), "spans": int(spans[2][0]), "span_blocks": int(widths.sum()),
+            "widest_span": int(widths.max()) if len(widths) else 0, "max_abs_err": e,
+            "ms": fresh_event_ms(esp_adjust_windows, fresh),
+            **device_time(lambda: esp_adjust_windows(*fresh()), name),
+            "plain_ms": plain_ms, **bound(name, got, got[:2]),
+        })
+        src, m, _rl, _rr, alphabet, overflow = et.round_body(src, m, alphabet)
+        if bool(overflow):
+            raise AssertionError(f"round of size {size} set its overflow flag")
+        size //= 2
+    edge = {}
+    for case, args in torch_cases.esp_edge_spans(dev).items():
+        got, plain = [a.clone() for a in args], [a.clone() for a in args]
+        esp_adjust_windows(*got)
+        esp_adjust_windows_plain(*plain)
+        edge[case] = max_abs_err(got[:2], plain[:2])
+    torch.cuda.synchronize()
+    if err or any(edge.values()):
+        raise AssertionError(f"kernel I differs from its plain version: rounds {err}, edge spans {edge}")
+    emit({"phase": "esp kernel", "max_abs_err": err, "tolerance": 0, "edge_spans_max_abs_err": edge,
+          "rounds": rounds, "card": gpu})
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms")
+    line = {k: rounds[0][k] for k in (*keys, "device_events", "bound_by")}
+    line["per_grammar"] = {k: sum(r[k] or 0.0 for r in rounds) for k in keys}
+    line["shape"] = "the first round of the 16 MiB input (the largest launch); per_grammar sums the 9 rounds"
+    return {name: err}, {name: line}
+
+
+def esp_stages(data: bytes, algo: str, device: str) -> tuple:
+    """One driver.compress of `algo` on `data` on `device` under a root
+    StatPhase: host seconds of each span the encode opens (EspCompressor's
+    "ESP Algorithm", whose device rounds end in a host sync, and "Encode
+    SLP"; the sorted coder's and the succinct d_coding's steps inside it),
+    keyed by their path. Returns the seconds and the container."""
+    from tudocomp_tpu_torch.driver import compress
+    from tudocomp_tpu_torch.stats.phase import StatPhase
+
+    with StatPhase("encode") as root:
+        container = compress(algo, data, device=device)
+    st = {}
+
+    def walk(ph, path):
+        for c in ph.children:
+            key = f"{path}/{c.title}" if path else c.title
+            st[key] = (c.time_end - c.time_start) / 1e3
+            st.update({f"{key}: {k}": v for k, v in c.stats.items()})
+            walk(c, key)
+
+    walk(root, "")
+    st["total"] = (root.time_end - root.time_start) / 1e3
+    return st, container
+
+
+def best_of(fn, reps: int):
+    """fn()'s result and its least host seconds over reps runs."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        out, t = synced(fn)
+        best = min(best, t)
+    return out, best
+
+
+def esp_roundtrip_phase(english, dev, gpu) -> int:
+    """Phase 13: the ESP ids through the driver on the card against the
+    port's host path: 16 MiB for ESP_ALGOS, 1 MiB for the ids of bench.py's
+    ESP cells (ratios held to BENCH_r05's); kernel I launched. Then the 16
+    MiB encode's StatPhase spans on the card and on the host, the 1 MiB
+    sorted encode's (the succinct coding's steps among them), the sweep
+    behind device.ESP_MIN_N and the host-finish threshold. Returns kernel I's launches in the 16 MiB
+    encodes."""
+    import numpy as np
+
+    from tudocomp_tpu_torch import device as tdev
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.compressors.esp import generate_grammar
+    from tudocomp_tpu_torch.driver import compress, decompress
+    from tudocomp_tpu_torch.ops import esp_torch as et
+
+    inputs = {ESP_BYTES: english[:ESP_BYTES].tobytes(), MIB: english_bytes(MIB).tobytes()}
+    runs = [*((algo, ESP_BYTES) for algo in ESP_ALGOS), *((algo, MIB) for algo in ESP_RATIOS_1MIB)]
+    launched_16 = 0
+    for algo, n in runs:
+        data = inputs[n]
+        kernels.reset_counts()
+        container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+        launched = kernels.counts()["esp_adjust_windows"]
+        on_card = tdev.use_esp_device(n, dev)
+        if on_card and launched == 0:
+            raise AssertionError(f"{algo} at {n} bytes: kernel I never launched")
+        if n == ESP_BYTES:
+            launched_16 += launched
+        back, dec_s = synced(lambda: decompress(container, device="cuda"))
+        if back != data:
+            raise AssertionError(f"{algo} at {n} bytes: device roundtrip differs from the input")
+        t0 = time.perf_counter()
+        ref = ref_compress(algo, data)
+        t1 = time.perf_counter()
+        if container != ref:
+            raise AssertionError(f"{algo} at {n} bytes: container differs from the host path's")
+        if ref_decompress(container) != data:
+            raise AssertionError(f"{algo} at {n} bytes: the host decode differs from the input")
+        t2 = time.perf_counter()
+        _, warm_s = synced(lambda: compress(algo, data, device="cuda"))
+        ratio = round(100.0 * len(container) / n, 2)
+        if n == MIB and ratio != ESP_RATIOS_1MIB[algo]:
+            raise AssertionError(f"{algo} at 1 MiB: ratio {ratio}% against BENCH_r05's {ESP_RATIOS_1MIB[algo]}%")
+        no_jax()
+        emit({"phase": "esp roundtrip", "algo": algo, "bytes": n, "container_bytes": len(container),
+              "ratio_pct": ratio, "rounds_on_card": on_card, "kernel_I_launches": launched,
+              "first_encode_s": enc_s, "warm_encode_s": warm_s, "decode_s": dec_s,
+              "encode_MBps": n / warm_s / 1e6, "decode_MBps": n / dec_s / 1e6,
+              "host_reference_encode_s": t1 - t0, "host_reference_decode_s": t2 - t1, "card": gpu})
+        del container, back, ref
+
+    stages = {}
+    for algo in ESP_ALGOS:
+        card_st, container = esp_stages(inputs[ESP_BYTES], algo, "cuda")
+        with host_path():
+            host_st, host_container = esp_stages(inputs[ESP_BYTES], algo, "cpu")
+        if container != host_container:
+            raise AssertionError(f"{algo}: the staged encode's container differs from the host path's")
+        stages[algo] = {"card": card_st, "host": host_st}
+    sorted_1mib, container = esp_stages(inputs[MIB], "esp(slp_coder=sorted)", "cuda")
+    if container != ref_compress("esp(slp_coder=sorted)", inputs[MIB]):
+        raise AssertionError("esp(slp_coder=sorted): the staged 1 MiB container differs from the host path's")
+
+    # the sweep behind ESP_MIN_N: device rounds (input up, rules back) against
+    # the host rounds, on prefixes of the 16 MiB text
+    sweep = {}
+    for n in ESP_SWEEP:
+        arr = np.frombuffer(inputs[ESP_BYTES][:n], np.uint8)
+        reps = 3 if n <= 4 * MIB else 2
+        dev_g, dev_s = best_of(lambda: et.esp_grammar_device(arr, device=dev), reps)
+        host_g, host_s = best_of(lambda: generate_grammar(arr), reps)
+        if not (np.array_equal(dev_g[0], host_g[0]) and dev_g[1:] == host_g[1:]):
+            raise AssertionError(f"device grammar differs from the host's at {n} bytes")
+        sweep[n] = {"device_s": dev_s, "host_s": host_s, "host_over_device": host_s / dev_s}
+    arr = np.frombuffer(inputs[ESP_BYTES], np.uint8)
+    want = generate_grammar(arr)
+    thresholds = {}
+    for t in ESP_THRESHOLDS:
+        g, thresholds[t] = best_of(lambda: et.esp_grammar_device(arr, threshold=t, device=dev), 2)
+        if not (np.array_equal(g[0], want[0]) and g[1:] == want[1:]):
+            raise AssertionError(f"threshold {t}: the grammar differs from the host's")
+    no_jax()
+    emit({"phase": "esp stages", "bytes": ESP_BYTES, "stages": stages, "sorted_1MiB_stages": sorted_1mib,
+          "gate_sweep_best_of_2_3": sweep, "threshold_s_best_of_2": thresholds,
+          "gates": {"ESP_MIN_N": tdev.ESP_MIN_N}, "kernel_I_launches_16MiB": launched_16, "card": gpu})
+    return launched_16
 
 
 if __name__ == "__main__":

@@ -611,3 +611,51 @@ def test_lzss_roundtrip_on_the_card(dev, algo, monkeypatch):
     monkeypatch.setenv("TDC_DEVICE_SA", "0")
     monkeypatch.setenv("TDC_DEVICE_LZSS", "0")
     assert c == compress(algo, data, device="cpu")
+
+
+ESP_EDGE = sorted(tc.esp_edge_spans())
+
+
+@pytest.mark.parametrize("case", ESP_EDGE)
+def test_esp_adjust_kernel_edge_spans(dev, case):
+    """Kernel I against its plain version on the edge spans: widths 1 to 260,
+    all ones, alternating types, no spans."""
+    from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
+
+    lens, typs, ws, we, ns = tc.esp_edge_spans(dev)[case]
+    want = [lens.cpu(), typs.cpu()]
+    esp_adjust_windows_plain(*want, ws.cpu(), we.cpu(), ns.cpu())
+    kernels.reset_counts()
+    esp_adjust_windows(lens, typs, ws, we, ns)  # in place
+    torch.cuda.synchronize()
+    assert kernels.counts()["esp_adjust_windows"] == 1
+    _equal((lens, typs), want)
+
+
+def test_esp_rounds_on_the_card(dev):
+    """Every device round of 1 MiB of text: kernel I against its plain
+    version on the round's spans, and the grammar equal to the host rounds'."""
+    from tudocomp_tpu_torch.compressors.esp import generate_grammar
+    from tudocomp_tpu_torch.ops import esp_torch as et
+    from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
+
+    data = np.frombuffer(tc.english(1 << 20, seed=5) + bytes(range(256)) * 16, np.uint8)
+    size = 1 << 21
+    src = et.padded(data, size, dev)
+    m = torch.tensor(len(data), dtype=torch.int32, device=dev)
+    alphabet = torch.tensor(256, dtype=torch.int32, device=dev)
+    while size // 2 >= 1 << 12:
+        lens, typs, nb = et.stage_blocks(src, m, alphabet)
+        ws, we, ns = et.adjust_spans(lens, nb)
+        want = [lens.clone(), typs.clone()]
+        esp_adjust_windows_plain(*want, ws, we, ns)
+        esp_adjust_windows(lens, typs, ws, we, ns)  # in place
+        _equal((lens, typs), want)
+        src, m, _rl, _rr, alphabet, overflow = et.round_body(src, m, alphabet)
+        assert not bool(overflow)
+        size //= 2
+    kernels.reset_counts()
+    got = et.esp_grammar_device(data, threshold=1 << 12, device=dev)
+    assert kernels.counts()["esp_adjust_windows"] == 9
+    want = generate_grammar(data)
+    assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]

@@ -107,7 +107,9 @@ BS = 2048
 def _ids():
     coders = TorchRegistry("cpu").names("coder")
     assert "huff" in coders and len(coders) >= 7
-    ids = [f"lzss_lcp(coder={c})" for c in coders]
+    # the consuming arithmetic coder's lzss_lcp container decodes in neither
+    # package (test_torch_slice.py::test_arithmetic_under_lz78_and_lzss_fails_in_both_packages)
+    ids = [f"lzss_lcp(coder={c})" for c in coders if c != "arithmetic"]
     ids += [
         "lzss_lcp(coder=huff,threshold=2)",
         f"blockwise(lzss_lcp(coder=huff),bs={BS})",

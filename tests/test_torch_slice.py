@@ -149,7 +149,8 @@ _JAX_FREE = textwrap.dedent(
         # lzw, each lz78trie, and blockwise with a shared table
         reg = TorchRegistry("cpu")
         coders = reg.names("coder")
-        ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in coders]
+        ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in coders if (c, k) != ("lz78", "arithmetic")]
+        coders = [k for k in coders if k != "arithmetic"]
         ids += [f"lz78(coder=bit,lz78trie={t})" for t in reg.names("lz78trie")]
         ids += ["blockwise(encode(huff),bs=4096,shared=1)", "blockwise(lzw(coder=gamma),bs=4096)"]
         # the lzss_lcp slice: every coder, the textds providers, blockwise
@@ -164,6 +165,12 @@ _JAX_FREE = textwrap.dedent(
         for sa, lz in ("11", "10", "01"):  # the device suffix array and factorization, forced
             os.environ["TDC_DEVICE_SA"], os.environ["TDC_DEVICE_LZSS"] = sa, lz
             assert [compress(algo, data, device="cpu") for algo in lzss] == host, (sa, lz)
+        esp_ids = ["esp", "esp(slp_coder=sorted)", "esp(slp_coder=sorted(d_coding=arith))"]
+        esp_data = data * 6  # past 2 x esp_grammar_device's threshold: one device round
+        host = [compress(algo, esp_data, device="cpu") for algo in esp_ids]
+        os.environ["TDC_DEVICE_ESP"] = "1"  # the device rounds, forced (kernel I's plain version)
+        assert [compress(algo, esp_data, device="cpu") for algo in esp_ids] == host
+        assert all(decompress(c, device="cpu") == esp_data for c in host)
         from tudocomp_tpu_torch import probes
         assert probes.main(["6", "7", "8", "--device", "cpu"]) == 0
         print(len(ids), "ids")
@@ -201,8 +208,11 @@ def _host_ids():
     from tudocomp_tpu_torch.registry import TorchRegistry
 
     reg = TorchRegistry("cpu")
-    ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in reg.names("coder")]
-    ids += [f"lzss_lcp(coder={k})" for k in reg.names("coder")]
+    # the consuming arithmetic coder neither encodes under lz78 nor
+    # roundtrips under lzss_lcp, in either package
+    # (test_arithmetic_under_lz78_and_lzss_fails_in_both_packages)
+    ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in reg.names("coder") if (c, k) != ("lz78", "arithmetic")]
+    ids += [f"lzss_lcp(coder={k})" for k in reg.names("coder") if k != "arithmetic"]
     ids += [f"lzss_lcp(coder=huff,textds=textds(isa={i},lcp={l}))" for i in reg.names("isa") for l in reg.names("lcp")]
     ids += [f"{c}(coder=bit,lz78trie={t})" for c in ("lz78", "lzw") for t in reg.names("lz78trie")]
     ids += [
@@ -216,6 +226,23 @@ def _host_ids():
 
 
 _HOST_DATA = CASES["deep-skew"][:4000] + b"abracadabra, abracadabra " * 60 + CASES["zipf"][:3000]
+
+
+def test_arithmetic_under_lz78_and_lzss_fails_in_both_packages():
+    """lz78 feeds its coder no literals, so the arithmetic coder's codebook
+    is empty and its first literal divides by zero; lzss_lcp's container
+    (the same bytes in both packages) does not decode."""
+    with pytest.raises(ZeroDivisionError):
+        jax_compress("lz78(coder=arithmetic)", _HOST_DATA)
+    with pytest.raises(ZeroDivisionError):
+        compress("lz78(coder=arithmetic)", _HOST_DATA, device="cpu")
+    algo = "lzss_lcp(coder=arithmetic)"
+    want = jax_compress(algo, _HOST_DATA)
+    assert compress(algo, _HOST_DATA, device="cpu") == want
+    with pytest.raises(IndexError):
+        jax_decompress(want)
+    with pytest.raises(IndexError):
+        decompress(want, device="cpu")
 
 
 @pytest.mark.parametrize("algo", _host_ids())

@@ -9,6 +9,7 @@ with the bytes it must decode to. Kernel H: sentinel-terminated texts.
 """
 
 import numpy as np
+import torch
 
 from tudocomp_tpu_torch.driver import compress
 from tudocomp_tpu_torch.io.bitio import BitWriter
@@ -374,3 +375,29 @@ def table_rows() -> dict:
 
 
 INT32_ROWS = [n for n, h in table_rows().items() if h.max() < 1 << 21]
+
+
+def esp_edge_spans(device="cpu") -> dict:
+    """Kernel I's edge cases, name -> (lens, typs, ws, we, ns) int32 tensors
+    on `device` (tests/test_torch_esp.py, chip_smoke.py phase 12): spans of 1
+    to 260 blocks, all ones, alternating types, and no spans at all."""
+    rng = np.random.default_rng(12)
+    cases = {}
+    for width in (1, 2, 3, 7, 8, 129, 200, 260):
+        lens = rng.choice([1, 2, 3], width).astype(np.int32)
+        cases[f"width {width}"] = (lens, rng.integers(1, 4, width).astype(np.int32), [(0, width)])
+    cases["all ones"] = (np.ones(300, np.int32), np.full(300, 2, np.int32), [(0, 300)])
+    alt = np.tile(np.array([1, 2], np.int32), 150)
+    cases["alternating types"] = (np.ones(300, np.int32), alt, [(0, 300)])
+    cases["alternating types, lens"] = (np.tile(np.array([1, 3, 2], np.int32), 100),
+                                       np.tile(np.array([3, 2, 1, 2], np.int32), 75), [(0, 150), (157, 300)])
+    cases["no spans"] = (np.full(64, 2, np.int32), np.full(64, 2, np.int32), [])
+    out = {}
+    for name, (lens, typs, spans) in cases.items():
+        S = len(lens) // 7 + 1
+        ws = np.zeros(S, np.int32)
+        we = np.zeros(S, np.int32)
+        for k, (a, b) in enumerate(spans):
+            ws[k], we[k] = a, b
+        out[name] = tuple(torch.from_numpy(x).to(device) for x in (lens, typs, ws, we, np.array([len(spans)], np.int32)))
+    return out

@@ -11,7 +11,12 @@
 //   - the suffix stack of lzss_lcp: SA-IS, the phi-algorithm PLCP, the
 //     inverse permutation, phi and gather helpers, the SparseISA shortcut
 //     build, the monotone-stack LZSS factorizer, and the lzss stream parse
-//     and factor copy of the decoder.
+//     and factor copy of the decoder;
+//   - ESP: one round of the host grammar (tdc_esp_round), the SLP's
+//     expansion (tdc_esp_derive), the canonical index decode of the
+//     huffman d_coding, and the longest increasing subsequence of the
+//     optimal subseq strategy (tdc_lis_indices, the port's own);
+//   - the arithmetic coder's encode and decode loops.
 // Every entry point returns what the JAX package's copy returns on the same
 // input, so the port's host path writes the same bytes. The JAX package's
 // other trie backends are left out: every trie gives the same factors, so
@@ -860,4 +865,413 @@ void tdc_lzss_apply_factors(uint8_t* out, const uint32_t* tgt,
         for (uint32_t i = 0; i < lens[j]; ++i) d[i] = s[i];
     }
 }
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// ESP (Edit-Sensitive Parsing) round: split the current symbol string into
+// blocks of size 2/3 and name each block with a grammar rule. Exact mirror
+// of the reference round logic: metablock splitting
+// (esp/RoundContextImpl.hpp:17-55 split / :7-14 split_where), type-2
+// alphabet reduction + landmark spanning (esp/meta_blocks.hpp:65-180
+// eager_mb2, esp/landmarks.hpp:30-79 landmark_spanner tie-to-right),
+// type-1/3 chunking (meta_blocks.hpp:33-63 eager_mb13), block adjustment
+// (esp/BlockAdjust.hpp adjust_blocks) and rule naming in first-appearance
+// order (esp/GrammarRules.hpp add; 3-blocks split into two 2-rules).
+//
+// Symbol spaces: input symbols are 0..alphabet-1; new rule j is referred
+// to as alphabet + j inside rule pairs; out_next holds 0-based rule ids.
+
+namespace esp_native {
+
+struct TypedBlock {
+    uint8_t len;
+    uint8_t type;
+};
+
+inline size_t iter_log(size_t n) {  // esp/esp_math.hpp:8-14
+    if (n < 7) return 0;
+    if (n < 9) return 1;
+    if (n < 17) return 2;
+    if (n < 257) return 3;
+    return 4;
+}
+
+inline uint64_t esp_label(uint64_t left, uint64_t right) {  // esp_math.hpp:16
+    uint64_t diff = left ^ right;
+    unsigned l = (unsigned)__builtin_ctzll(diff);
+    return 2ull * l + ((right >> l) & 1);
+}
+
+inline bool needs_merge(const TypedBlock& a, const TypedBlock& b) {
+    return a.len == 1 || b.len == 1;
+}
+
+inline size_t merge(TypedBlock& a, TypedBlock& b, uint8_t type) {
+    size_t sum = a.len + b.len;
+    if (sum == 2) {
+        a.len = 2; b.len = 2; a.type = type; b.type = type; return 1;
+    } else if (sum == 3) {
+        a.len = 3; b.len = 3; a.type = type; b.type = type; return 1;
+    } else {
+        a.len = 2; b.len = 2; a.type = type; b.type = type; return 2;
+    }
+}
+
+// adjust_blocks with the reference's 3-slot queue (BlockAdjust.hpp:38-131)
+inline void adjust_blocks(std::vector<TypedBlock>& blocks) {
+    if (blocks.size() < 2) return;
+    std::vector<TypedBlock> q;  // front = q[0]
+    size_t read = 0, write = 0;
+    auto fill = [&]() {
+        while (q.size() < 3 && read < blocks.size()) q.push_back(blocks[read++]);
+    };
+    auto step = [&]() -> bool {
+        bool has_one = false;
+        for (auto& e : q)
+            if (e.len == 1) has_one = true;
+        if (!has_one) return false;
+        if (q.size() == 3) {
+            TypedBlock& a = q[1];
+            TypedBlock& b = q[2];
+            if (needs_merge(a, b) && a.type == 2 && b.type == 2) {
+                if (merge(a, b, 2) == 1) q.pop_back();
+                return true;
+            }
+        }
+        if (q.size() >= 2) {
+            TypedBlock& a = q[0];
+            TypedBlock& b = q[1];
+            if (needs_merge(a, b) && a.type == 2 && b.type == 2) {
+                if (merge(a, b, 2) == 1) q.erase(q.begin());
+                return true;
+            }
+            if (needs_merge(a, b) && a.type == 3) {
+                if (merge(a, b, 3) == 1) q.erase(q.begin());
+                return true;
+            }
+            if (needs_merge(a, b) && (a.type == 1 || b.type == 1)) {
+                if (merge(a, b, 1) == 1) q.erase(q.begin());
+                return true;
+            }
+        }
+        return false;  // v[0].len > 1 case
+    };
+    fill();
+    while (!q.empty()) {
+        do {
+            fill();
+        } while (step());
+        blocks[write++] = q.front();
+        q.erase(q.begin());
+    }
+    blocks.resize(write);
+}
+
+struct RoundState {
+    std::vector<TypedBlock> blocks;
+    std::vector<uint64_t> scratch;
+
+    void push_block(uint8_t len, uint8_t type) {
+        blocks.push_back(TypedBlock{len, type});
+    }
+
+    void eager_mb13(size_t len, uint8_t t) {  // meta_blocks.hpp:33-63
+        size_t remaining = len;
+        while (remaining) {
+            if (remaining == 4) { push_block(2, t); push_block(2, t); return; }
+            if (remaining == 3) { push_block(3, t); return; }
+            if (remaining == 2) { push_block(2, t); return; }
+            if (remaining == 1) { push_block(1, t); return; }
+            push_block(3, t);
+            remaining -= 3;
+        }
+    }
+
+    void eager_mb2(const uint32_t* A, size_t L, size_t alphabet) {
+        size_t t3 = std::min(iter_log(alphabet), L);
+        eager_mb13(t3, 3);
+        if (t3 == L) return;
+
+        auto& buf = scratch;
+        buf.assign(A, A + L);
+        for (size_t s = 0; s < t3; ++s) {  // reduce to alphabet <= 6
+            for (size_t i = 1; i < buf.size(); ++i)
+                buf[i - 1] = esp_label(buf[i - 1], buf[i]);
+            buf.pop_back();
+        }
+        // reduce to alphabet <= 3 (in-place neighbor-aware renaming)
+        const size_t B = buf.size();
+        for (uint64_t to_replace = 3; to_replace < 6; ++to_replace) {
+            for (size_t i = 0; i < B; ++i) {
+                if (buf[i] != to_replace) continue;
+                uint64_t nb[2];
+                int nn = 0;
+                if (i > 0) nb[nn++] = buf[i - 1];
+                if (i + 1 < B) nb[nn++] = buf[i + 1];
+                uint64_t e = 0;
+                for (int k = 0; k < nn; ++k)
+                    if (nb[k] == e) ++e;
+                for (int k = 0; k < nn; ++k)
+                    if (nb[k] == e) ++e;
+                buf[i] = e;
+            }
+        }
+        // landmarks
+        std::vector<uint8_t> lm(B, 0);
+        for (size_t i = 0; i < B; ++i) {
+            bool high = true;
+            if (i > 0 && buf[i - 1] > buf[i]) high = false;
+            if (i + 1 < B && buf[i + 1] > buf[i]) high = false;
+            if (high) lm[i] = 1;
+        }
+        for (size_t i = 0; i < B; ++i) {
+            bool low = true;
+            if (i > 0 && buf[i - 1] < buf[i]) low = false;
+            if (i + 1 < B && buf[i + 1] < buf[i]) low = false;
+            if (low) {
+                if ((i == 0 || lm[i - 1] == 0) && (i + 1 >= B || lm[i + 1] == 0))
+                    lm[i] = 1;
+            }
+        }
+        // landmark_spanner, tie_to_right = true (landmarks.hpp:30-79)
+        struct Block {
+            size_t left, right;
+        };
+        Block b0{0, 0}, b1{0, 0};
+        int bi = 0;
+        for (size_t i = 0; i < B; ++i) {
+            if (!lm[i]) continue;
+            b1.left = (i == 0) ? i : i - 1;
+            b1.right = (i == B - 1) ? i : i + 1;
+            if (bi > 0 && b1.left == b0.right) b0.right--;  // tie to right
+            if (bi == 0) {
+                bi = 1;
+            } else {
+                push_block((uint8_t)(b0.right - b0.left + 1), 2);
+            }
+            b0 = b1;
+        }
+        if (bi == 1) push_block((uint8_t)(b1.right - b1.left + 1), 2);
+    }
+};
+
+}  // namespace esp_native
+
+extern "C" {
+
+// One ESP round. out_next cap: n/2+1; rules_l/r cap: n+1.
+// Returns next length; *rules_count_out = number of new rules.
+int64_t tdc_esp_round(const uint32_t* src, int64_t n, int64_t alphabet,
+                      uint32_t* out_next, uint32_t* rules_l, uint32_t* rules_r,
+                      int64_t* rules_count_out) {
+    using namespace esp_native;
+    RoundState st;
+    // --- metablock split (RoundContextImpl.hpp:17-55)
+    int64_t i = 0;
+    while (i < n) {
+        // non-repeating scan: j = first j in [i, n-1) with src[j]==src[j+1]
+        int64_t j = n;
+        for (int64_t k = i; k < n - 1; ++k)
+            if (src[k] == src[k + 1]) {
+                j = k;
+                break;
+            }
+        if (j != i) {
+            st.eager_mb2(src + i, (size_t)(j - i), (size_t)alphabet);
+            i = j;
+        }
+        if (i >= n) break;
+        // repeating scan: first k with src[k]!=src[k+1], then +1
+        j = n;
+        for (int64_t k = i; k < n - 1; ++k)
+            if (src[k] != src[k + 1]) {
+                j = k + 1;
+                break;
+            }
+        if (j != i) {
+            st.eager_mb13((size_t)(j - i), 1);
+            i = j;
+        }
+    }
+    adjust_blocks(st.blocks);
+
+    // --- rule naming (GrammarRules semantics; dedup by hash)
+    HashTrie map((size_t)n + 16);
+    int64_t counter = 0;  // local 0-based rule ids
+    auto add2 = [&](uint64_t a, uint64_t b) -> uint32_t {
+        uint64_t key = (a << 32) | b;
+        uint32_t found = map.find_or_insert(key, (uint32_t)counter);
+        if (found == UINT32_MAX) {
+            rules_l[counter] = (uint32_t)a;
+            rules_r[counter] = (uint32_t)b;
+            return (uint32_t)counter++;
+        }
+        return found;
+    };
+    int64_t pos = 0;
+    int64_t m = 0;
+    for (auto& b : st.blocks) {
+        uint32_t name;
+        if (b.len == 2) {
+            name = add2(src[pos], src[pos + 1]);
+        } else {
+            uint32_t x = add2(src[pos], src[pos + 1]);
+            name = add2((uint64_t)alphabet + x, src[pos + 2]);
+        }
+        out_next[m++] = name;
+        pos += b.len;
+    }
+    if (pos != n) return -1;  // block coverage mismatch (should not happen)
+    *rules_count_out = counter;
+    return m;
+}
+
+// SLP::derive_text (esp/SLP.hpp:25-38): expand the straight-line program
+// from the root with an explicit stack; symbols < 256 are terminals,
+// rule x >= 256 expands to (l[x-256], r[x-256]).
+// returns -1 when out_cap is too small, -2 on an out-of-range rule id,
+// -3 on a cyclic rule graph (corrupt container; the caller raises).
+// Cycle bound: a valid binary derivation emitting T <= out_cap terminals
+// pops at most T terminals + (T-1 internal nodes + one left spine of
+// length <= n_rules in an acyclic rule DAG), so any run exceeding
+// 2*out_cap + n_rules + 2 pops can only be a cycle.
+int64_t tdc_esp_derive(const int32_t* rl, const int32_t* rr, int64_t n_rules,
+                       int64_t root, uint8_t* out, int64_t out_cap) {
+    std::vector<int32_t> stack;
+    stack.push_back((int32_t)root);
+    int64_t n = 0;
+    const int64_t max_pops = 2 * out_cap + n_rules + 2;
+    int64_t pops = 0;
+    while (!stack.empty()) {
+        if (++pops > max_pops) return -3;
+        int32_t x = stack.back();
+        stack.pop_back();
+        if (x < 0) return -2;
+        if (x < 256) {
+            if (n >= out_cap) return -1;
+            out[n++] = (uint8_t)x;
+        } else {
+            if ((int64_t)x - 256 >= n_rules) return -2;
+            stack.push_back(rr[x - 256]);
+            stack.push_back(rl[x - 256]);
+        }
+    }
+    return n;
+}
+
+// Canonical-code index decode over an unpacked bit array (the esp huff2
+// D-coding decoder loop, esp/HuffmanCoder.hpp decode semantics): first-
+// match rule value >= firstcode[len]; emits the ordered-symbol INDEX
+// psl[len-1] + value - firstcode[len-1] so the caller maps through any
+// symbol alphabet. Returns the new bit position.
+// n_bits bounds the readable bit array; returns -1 on a truncated stream
+// (the caller raises instead of reading out of bounds).
+int64_t tdc_canonical_decode_idx(const uint8_t* bits, int64_t pos,
+                                 int64_t n_bits, const int64_t* fc,
+                                 const int64_t* psl, int64_t longest,
+                                 int32_t* out_idx, int64_t count) {
+    for (int64_t i = 0; i < count; ++i) {
+        int64_t value = 0, len = 0;
+        do {
+            if (pos >= n_bits) return -1;
+            value = (value << 1) | bits[pos++];
+            ++len;
+        } while (len < longest && value < fc[len - 1]);
+        out_idx[i] = (int32_t)(psl[len - 1] + value - fc[len - 1]);
+    }
+    return pos;
+}
+
+// Arithmetic (range) coder hot loops, mirror of coders/ArithmeticCoder.hpp:
+// 96-117 (setNewBounds) and :188-215 (block decode). C is the cumulative
+// normalized count table; a code block is flushed whenever the remaining
+// range drops below min_range. Returns the number of u64 codes emitted
+// (out_codes must hold n + 2 entries; the trailing dummy is NOT included).
+int64_t tdc_arith_encode(const uint8_t* data, int64_t n, const uint32_t* C,
+                         uint64_t min_range, uint64_t* out_codes) {
+    uint64_t lower = 0, upper = ~0ull;
+    const uint64_t total = C[255];
+    int64_t nc = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t range = upper - lower;
+        if (range < min_range) {
+            out_codes[nc++] = lower;
+            lower = 0;
+            upper = ~0ull;
+            range = upper - lower;
+        }
+        uint8_t v = data[i];
+        uint64_t off_u =
+            range <= total ? range * C[v] / total : range / total * C[v];
+        upper = lower + off_u;
+        if (v != 0) {
+            uint64_t off_l = range <= total ? range * C[v - 1] / total
+                                            : range / total * C[v - 1];
+            lower = lower + off_l;
+        }
+    }
+    if (n > 0) out_codes[nc++] = lower;  // postProcessing final block
+    return nc;
+}
+
+// Decode `literal_count` literals from the code-block sequence.
+// syms/cums: codebook entries (symbol, cumulative normalized count).
+int64_t tdc_arith_decode(const uint64_t* codes, int64_t ncodes,
+                         const uint8_t* syms, const uint32_t* cums,
+                         int32_t cbsize, uint64_t min_range,
+                         int64_t literal_count, uint8_t* out) {
+    if (cbsize <= 0) return 0;
+    const uint64_t total = cums[cbsize - 1];
+    int64_t cnt = 0;
+    for (int64_t ci = 0; ci < ncodes && cnt < literal_count; ++ci) {
+        uint64_t code = codes[ci];
+        uint64_t lower = 0, upper = ~0ull;
+        uint64_t range = upper - lower;
+        while (min_range <= range && cnt < literal_count) {
+            uint64_t interval_lower = lower;
+            for (int32_t i = 0; i < cbsize; ++i) {
+                uint64_t off = range <= total ? range * cums[i] / total
+                                              : range / total * cums[i];
+                upper = lower + off;
+                if (code < upper) {
+                    out[cnt++] = syms[i];
+                    lower = interval_lower;
+                    break;
+                }
+                interval_lower = upper;
+            }
+            range = upper - lower;
+        }
+    }
+    return cnt;
+}
+
+// Longest strictly increasing subsequence of the n distinct values y, by
+// patience sorting with predecessor links (the port's C++ form of
+// compressors/esp_dcoding.py:_lis_indices, which picks the same indices):
+// each value replaces the first tail >= it (a lower bound), links to the
+// tail one layer down, and the chain is read back from the last layer's
+// tail. Writes the chain's indices in increasing order to out (room for n)
+// and returns its length.
+int64_t tdc_lis_indices(const int64_t* y, int64_t n, int64_t* out) {
+    if (n <= 0) return 0;
+    std::vector<int64_t> tails, tails_idx, prev((size_t)n);
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t val = y[i];
+        const size_t j = (size_t)(std::lower_bound(tails.begin(), tails.end(), val) - tails.begin());
+        if (j == tails.size()) {
+            tails.push_back(val);
+            tails_idx.push_back(i);
+        } else {
+            tails[j] = val;
+            tails_idx[j] = i;
+        }
+        prev[(size_t)i] = j > 0 ? tails_idx[j - 1] : -1;
+    }
+    int64_t len = 0;
+    for (int64_t k = tails_idx.back(); k != -1; k = prev[(size_t)k]) out[len++] = k;
+    std::reverse(out, out + len);
+    return len;
+}
+
 }  // extern "C"

@@ -14,7 +14,8 @@ paths on the CPU. The blockwise parse has a size gate on top
 host coder builds its one table, so it always runs the device stages.
 TDC_DEVICE_SA and TDC_DEVICE_LZSS do the same for the suffix array and the
 LZSS factorization of lzss_lcp, each with a size gate of its own
-(use_sa_device, use_lzss_device). The PLCP and LCP arrays have no gate of
+(use_sa_device, use_lzss_device), and TDC_DEVICE_ESP for the ESP rounds
+(use_esp_device). The PLCP and LCP arrays have no gate of
 their own: TextDS computes them on the device exactly when the device built
 the suffix array, which then lies there already.
 """
@@ -25,7 +26,7 @@ import os
 
 import torch
 
-__all__ = ["resolve", "use_device", "use_lzss_device", "use_parse_device", "use_sa_device"]
+__all__ = ["resolve", "use_device", "use_esp_device", "use_lzss_device", "use_parse_device", "use_sa_device"]
 
 
 def resolve(device) -> torch.device:
@@ -154,3 +155,26 @@ def use_lzss_device(n: int, device: torch.device) -> bool:
     """Should lzss_lcp factorize a text of n bytes on `device`
     (ops/lzss_torch.lzss_lcp_factorize_device)? TDC_DEVICE_LZSS as above."""
     return _use_sized("TDC_DEVICE_LZSS", n, LZSS_MIN_N, device)
+
+
+# Smallest input whose ESP rounds run on a CUDA device (ops/esp_torch.py)
+# when TDC_DEVICE_ESP is unset; smaller ones take the host rounds.
+# Measured by chip_smoke.py (phase "esp stages", gate_sweep) on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, on prefixes of 16 MiB of synth_english (seed
+# 7), best of 2-3: esp_grammar_device (bytes up, nine rounds at most down to
+# the host-finish threshold of 1 << 15, rules back) against
+# generate_grammar's C++ rounds, milliseconds: 128 KiB 26.9 against 9.3,
+# 256 KiB 40.8 against 19.8, 512 KiB 49.8 against 37.2, 1 MiB 64.3 against
+# 94.8, 4 MiB 101.7 against 397.0, 16 MiB 180.6 against 1828.5. A device
+# round costs 5-10 ms of launches whatever its size, so the host wins below
+# 1 MiB and the card from 1 MiB on: host over device in four runs 0.48-0.97
+# at 512 KiB, 1.18-1.79 at 1 MiB. (The JAX package's 2 MiB came from a TPU
+# and does not apply here.)
+ESP_MIN_N = 1 << 20
+
+
+def use_esp_device(n: int, device: torch.device) -> bool:
+    """Should the ESP grammar of an input of n bytes be built by the device
+    rounds on `device` (ops/esp_torch.esp_grammar_device)?
+    TDC_DEVICE_ESP=1/0 forces it on (on whichever device was given) or off."""
+    return _use_sized("TDC_DEVICE_ESP", n, ESP_MIN_N, device)

@@ -191,6 +191,21 @@ class BitWriter:
         self.write_elias_gamma(nb)
         self.write_int(v, nb)
 
+    def write_unaries(self, values) -> None:
+        """Vectorized unary write: each v becomes v zeros + a one, the bits
+        write_unary writes (v // 64 zero tokens of 64 bits, then a one in
+        v % 64 + 1 bits)."""
+        values = np.asarray(values, dtype=np.int64).ravel()
+        if not len(values):
+            return
+        zeros = values // 64
+        ones_at = np.cumsum(zeros + 1) - 1  # each value's last token
+        nb = np.full(int(ones_at[-1]) + 1, 64, np.int64)
+        nb[ones_at] = values % 64 + 1
+        tok = np.zeros(len(nb), np.uint64)
+        tok[ones_at] = 1
+        self.write_ints(tok, nb, masked=True)
+
     def write_compressed_int(self, v: int, b: int = 7) -> None:
         # flag bit (1 = more blocks) + b-bit block, little-endian blocks
         # (BitOStream.hpp:150-163)
@@ -423,6 +438,21 @@ class BitReader:
     def read_elias_delta(self) -> int:
         nb = self.read_elias_gamma()
         return self.read_int(nb)
+
+    def read_unaries(self, count: int) -> np.ndarray:
+        """Vectorized read of `count` unary codes (mirror of read_unary)."""
+        count = int(count)
+        if count == 0:
+            return np.zeros(0, dtype=np.int64)
+        if self._ones is None:
+            self._ones = np.flatnonzero(self._bits[: self._valid])
+        idx = np.searchsorted(self._ones, self._pos)
+        if idx + count > len(self._ones):
+            return np.array([self.read_unary() for _ in range(count)], np.int64)
+        ones = self._ones[idx : idx + count].astype(np.int64)
+        starts = np.concatenate([[self._pos], ones[:-1] + 1])
+        self._pos = int(ones[-1]) + 1
+        return ones - starts
 
     def read_compressed_int(self, b: int = 7) -> int:
         assert b > 0

@@ -5,7 +5,9 @@ port's host layers call: the LZ78/LZW parses and decodes, the token pack
 and read of the bit writer and reader, the canonical Huffman bulk decodes,
 the segmented token interleave, and the suffix stack of lzss_lcp (SA-IS,
 PLCP, the permutation helpers, the SparseISA build, the LZSS factorizer and
-the lzss stream parse and factor copy). The library is built with g++ at first
+the lzss stream parse and factor copy), the ESP round, the SLP's expansion,
+the canonical index decode and the longest increasing subsequence of the
+esp coders, and the arithmetic coder's loops. The library is built with g++ at first
 use into `build/tudocomp_tpu_torch/` at the repository root (git-ignored),
 named by a hash of the source, so a change rebuilds. Every caller keeps a
 pure-Python fallback, so the host path runs, slower, where no compiler is
@@ -93,6 +95,12 @@ def _bind(lib: ctypes.CDLL) -> None:
              u8p, u32p, u32p, u32p, i64p],
         ),
         "tdc_lzss_apply_factors": (None, [u8p, u32p, u32p, u32p, i64]),
+        "tdc_esp_round": (i64, [u32p, i64, i64, u32p, u32p, u32p, i64p]),
+        "tdc_esp_derive": (i64, [i32p, i32p, i64, i64, u8p, i64]),
+        "tdc_canonical_decode_idx": (i64, [u8p, i64, i64, i64p, i64p, i64, i32p, i64]),
+        "tdc_arith_encode": (i64, [u8p, i64, u32p, ctypes.c_uint64, u64p]),
+        "tdc_arith_decode": (i64, [u64p, i64, u8p, u32p, i32, ctypes.c_uint64, i64, u8p]),
+        "tdc_lis_indices": (i64, [i64p, i64, i64p]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)

@@ -4,10 +4,11 @@
 of include/tudocomp/Registry.hpp:11-238), trimmed to registration, lookup
 and selection: it maps (type, name) to algorithm classes and selects and
 instantiates them from id strings. `TorchRegistry` holds the algorithms of
-the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `encode`, the
-Huffman and universal coders `huff`, `ascii`, `bit`, `gamma`, `delta`,
-`ternary`, `vbyte`, the `lz78trie` axis and the hash axes of its hash
-tries, the `textds` axis and its providers) and is bound to the one
+the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `esp`, `encode`,
+the Huffman, arithmetic and universal coders `huff`, `arithmetic`, `ascii`,
+`bit`, `gamma`, `delta`, `ternary`, `vbyte`, the `lz78trie` axis and the
+hash axes of its hash tries, the `textds` axis and its providers, and esp's
+`slp_coder`, `d_coding`, `subseq` and `ipd` axes) and is bound to the one
 torch.device its device stages run on.
 """
 
@@ -17,6 +18,7 @@ from typing import Type
 
 import torch
 
+from .coders.arithmetic import ArithmeticCoder
 from .coders.huffman import HuffmanCoder
 from .coders.universal import (
     ASCIICoder,
@@ -26,8 +28,10 @@ from .coders.universal import (
     TernaryCoder,
     VbyteCoder,
 )
+from .compressors import esp_dcoding as dc
 from .compressors import hash_axes, lz78_tries
 from .compressors.blockwise import BlockwiseCompressor
+from .compressors.esp import IPDS, EspCompressor, PlainSLPCoder, SortedSLPCoder
 from .compressors.lz78 import LZ78Compressor
 from .compressors.lzss_lcp import LZSSLCPCompressor
 from .compressors.lzw import LZWCompressor
@@ -95,6 +99,20 @@ class TorchRegistry(Registry):
             EliasDeltaCoder,
             TernaryCoder,
             VbyteCoder,
+            ArithmeticCoder,
+            EspCompressor,
+            PlainSLPCoder,
+            SortedSLPCoder,
+            dc.DPlain,
+            dc.DDiff,
+            dc.DWaveletTree,
+            dc.DHuffman,
+            dc.DMonotonSubseq,
+            dc.DRangeFit,
+            dc.DArith,
+            dc.SubSeqOptimal,
+            dc.SubSeqGreedy,
+            *IPDS,
         ):
             self.register(cls)
         lz78_tries.register(self)
