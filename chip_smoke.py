@@ -8,9 +8,9 @@
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
 device="cpu") and decompress(container, device="cpu") with
-TDC_DEVICE_HUFF=0, TDC_DEVICE_LZ78=0, TDC_DEVICE_SA=0, TDC_DEVICE_LZSS=0 and
-TDC_DEVICE_ESP=0, which run the port's copies of the host coders, parses,
-suffix stack and ESP rounds
+TDC_DEVICE_HUFF=0, TDC_DEVICE_LZ78=0, TDC_DEVICE_SA=0, TDC_DEVICE_LZSS=0,
+TDC_DEVICE_ESP=0 and TDC_DEVICE_LCPCOMP=0, which run the port's copies of
+the host coders, parses, suffix stack, ESP rounds and lcpcomp stages
 (the CPU tests hold those byte-equal to the JAX package). Phases, one JSON
 line each:
   1. build          compile the CUDA kernels from tudocomp_tpu_torch/csrc,
@@ -138,6 +138,29 @@ line each:
                     host rounds from 64 KiB to 16 MiB (the numbers behind
                     device.ESP_MIN_N) and the 16 MiB grammar at three
                     host-finish thresholds.
+ 14. lcpcomp roundtrip  lcpcomp(coder=huff) (arrays, scan) and
+                    lcpcomp(coder=huff,comp=plcppeaks) on phase 10's 16 MiB
+                    texts through driver.compress(device="cuda"), with the
+                    gates as set and with TDC_DEVICE_LCPCOMP=1: each
+                    container equals the host path's; each container
+                    decoded under dec=scan and dec=compact on the card
+                    (TDC_DEVICE_LCPCOMP=1) and on the host returns the
+                    input; kernel H launched (TextDS takes the PLCP from it,
+                    and the plcppeaks walk its SA, ISA and PLCP on the card);
+                    ratios and rates. At 1 MiB of the English text,
+                    lcpcomp(coder=sle), encode(coder=sle) and the two textds
+                    ids of the matrix, each against the host path;
+ 15. lcpcomp stages the StatPhase spans of one warm 16 MiB English encode
+                    and decode of each phase 14 id, card against host, and
+                    the sweep behind device.LCPCOMP_MIN_N and
+                    LCPCOMP_DEC_MIN_N: plcppeaks_factorize_device (from the
+                    card's SA, ISA and PLCP, the factors back) against the
+                    C++ strategy (with the ISA and PLCP brought down; below
+                    device.SA_MIN_N the host builds the SA, and the card's
+                    side takes the copies up instead), and
+                    resolve_factors_device (copies included) against
+                    tdc_lcpcomp_scan_decode, on prefixes of 16 KiB to 16
+                    MiB, best of 2-3.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
 its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
@@ -198,6 +221,11 @@ ESP_ALGOS = ("esp", "esp(slp_coder=sorted(d_coding=arith))")  # BASELINE config 
 ESP_RATIOS_1MIB = {"esp": 48.64, "esp(slp_coder=sorted)": 31.48}  # bench.py:337-338, BENCH_r05's ratio_pct
 ESP_THRESHOLDS = (1 << 12, 1 << 15, 1 << 18)  # esp_grammar_device's host-finish threshold (default 1 << 15)
 ESP_SWEEP = (64 << 10, 128 << 10, 256 << 10, 512 << 10, MIB, 4 * MIB, 16 * MIB)  # sizes behind ESP_MIN_N
+LCPCOMP_BYTES = 16 * MIB  # BASELINE config 3's size
+LCPCOMP_ALGOS = ("lcpcomp(coder=huff)", "lcpcomp(coder=huff,comp=plcppeaks)")
+LCPCOMP_SMALL = ("lcpcomp(coder=sle)", "encode(coder=sle)", "lcpcomp(coder=huff,textds=textds(isa=sparse_isa))",
+                 "lcpcomp(coder=huff,comp=plcppeaks,textds=textds(lcp=compressed_lcp))")  # at 1 MiB
+LCPCOMP_SWEEP = (16 << 10, 64 << 10, 256 << 10, MIB, 4 * MIB, 16 * MIB)  # behind LCPCOMP_MIN_N, _DEC_MIN_N
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
 LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
 LZW_PLAIN_PREFIX = 1 << 16  # bytes of those blocks the plain version steps through
@@ -374,7 +402,8 @@ def english_bytes(n: int):
     return np.frombuffer(b"".join(parts)[:n], np.uint8)
 
 
-GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_ESP")
+GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_ESP",
+         "TDC_DEVICE_LCPCOMP")
 
 
 def dna_bytes(n: int):
@@ -1258,6 +1287,13 @@ def main() -> int:
     for table, new in zip((errs, timing), esp_kernel_phase(english, dev, gpu)):
         table.update(new)
     launches["esp_adjust_windows"] = esp_roundtrip_phase(english, dev, gpu)
+    torch.cuda.empty_cache()
+
+    # 14-15. lcpcomp: the ids through the driver, the stages and the gates
+    launches_lcp = lcpcomp_roundtrip_phase(english, gpu)
+    launches["plcp_segments"] += launches_lcp
+    timing["plcp_segments"]["launches_by_shape"]["lcpcomp 16 MiB"] = launches_lcp
+    lcpcomp_stages_phase(english, dev, gpu)
 
     print(gpu)
     emit({"kernels": [
@@ -2352,17 +2388,13 @@ def esp_kernel_phase(english, dev, gpu):
     return {name: err}, {name: line}
 
 
-def esp_stages(data: bytes, algo: str, device: str) -> tuple:
-    """One driver.compress of `algo` on `data` on `device` under a root
-    StatPhase: host seconds of each span the encode opens (EspCompressor's
-    "ESP Algorithm", whose device rounds end in a host sync, and "Encode
-    SLP"; the sorted coder's and the succinct d_coding's steps inside it),
-    keyed by their path. Returns the seconds and the container."""
-    from tudocomp_tpu_torch.driver import compress
+def phase_spans(fn) -> tuple:
+    """fn() under a root StatPhase: the host seconds of each span it opens
+    and the stats each logs, keyed by their path, and fn()'s result."""
     from tudocomp_tpu_torch.stats.phase import StatPhase
 
-    with StatPhase("encode") as root:
-        container = compress(algo, data, device=device)
+    with StatPhase("root") as root:
+        out = fn()
     st = {}
 
     def walk(ph, path):
@@ -2374,7 +2406,17 @@ def esp_stages(data: bytes, algo: str, device: str) -> tuple:
 
     walk(root, "")
     st["total"] = (root.time_end - root.time_start) / 1e3
-    return st, container
+    return st, out
+
+
+def esp_stages(data: bytes, algo: str, device: str) -> tuple:
+    """One driver.compress of `algo` on `data` on `device`: the host seconds
+    of each span the encode opens (EspCompressor's "ESP Algorithm", whose
+    device rounds end in a host sync, and "Encode SLP"; the sorted coder's
+    and the succinct d_coding's steps inside it), and the container."""
+    from tudocomp_tpu_torch.driver import compress
+
+    return phase_spans(lambda: compress(algo, data, device=device))
 
 
 def best_of(fn, reps: int):
@@ -2473,6 +2515,176 @@ def esp_roundtrip_phase(english, dev, gpu) -> int:
           "gate_sweep_best_of_2_3": sweep, "threshold_s_best_of_2": thresholds,
           "gates": {"ESP_MIN_N": tdev.ESP_MIN_N}, "kernel_I_launches_16MiB": launched_16, "card": gpu})
     return launched_16
+
+
+def with_dec(algo: str, dec: str) -> str:
+    """The lcpcomp id `algo` with its decoder set to `dec`."""
+    return f"{algo[:-1]},dec={dec})"
+
+
+def lcpcomp_roundtrip_phase(english, gpu) -> int:
+    """Phase 14: the lcpcomp ids through the driver on the card against the
+    port's host path, at 16 MiB of English and of DNA, the gates as set and
+    forced on; each container decoded under scan and compact on the card and
+    on the host; then the 1 MiB ids. Returns kernel H's launches in the
+    gated 16 MiB encodes."""
+    from tudocomp_tpu_torch import device as tdev
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.driver import compress, decompress
+
+    inputs = {"synth_english": english[:LCPCOMP_BYTES].tobytes(), "dna": dna_bytes(LCPCOMP_BYTES).tobytes()}
+    launched_h = 0
+    for which, data in inputs.items():
+        n = len(data) + 1  # the sentinel
+        for algo in LCPCOMP_ALGOS:
+            t0 = time.perf_counter()
+            ref = ref_compress(algo, data)
+            host_s = time.perf_counter() - t0
+            kernels.reset_counts()
+            container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+            launched = kernels.counts()["plcp_segments"]
+            if launched == 0:
+                raise AssertionError(f"{algo} on {which}: kernel H never launched")
+            launched_h += launched
+            if container != ref:
+                raise AssertionError(f"{algo} on {which}: container differs from the host path's")
+            os.environ["TDC_DEVICE_LCPCOMP"] = "1"
+            try:
+                forced, forced_s = synced(lambda: compress(algo, data, device="cuda"))
+                if forced != ref:
+                    raise AssertionError(f"{algo} on {which}: the forced device stages' container differs")
+                _, warm_s = synced(lambda: compress(algo, data, device="cuda"))
+                dec_s = {}
+                for dec in ("scan", "compact"):
+                    back, dec_s[f"card {dec}"] = synced(
+                        lambda: decompress(container, device="cuda", id_string=with_dec(algo, dec)))
+                    if back != data:
+                        raise AssertionError(f"{algo} on {which}: the card's decode ({dec}) differs from the input")
+            finally:
+                del os.environ["TDC_DEVICE_LCPCOMP"]
+            for dec in ("scan", "compact"):
+                t0 = time.perf_counter()
+                with host_path():
+                    back = decompress(container, device="cpu", id_string=with_dec(algo, dec))
+                dec_s[f"host {dec}"] = time.perf_counter() - t0
+                if back != data:
+                    raise AssertionError(f"{algo} on {which}: the host decode ({dec}) differs from the input")
+            no_jax()
+            emit({"phase": "lcpcomp roundtrip", "algo": algo, "input": which, "bytes": len(data),
+                  "container_bytes": len(container), "ratio_pct": 100.0 * len(container) / len(data),
+                  "factorize_on_card": "plcppeaks" in algo and tdev.use_lcpcomp_device(n, tdev.resolve("cuda")),
+                  "decode_on_card_when_gated": tdev.use_lcpcomp_decode_device(n, tdev.resolve("cuda")),
+                  "kernel_H_launches": launched, "first_encode_s": enc_s, "forced_encode_s": forced_s,
+                  "warm_forced_encode_s": warm_s, "decode_s": dec_s,
+                  "encode_MBps": len(data) / warm_s / 1e6,
+                  "decode_MBps": {k: len(data) / v / 1e6 for k, v in dec_s.items()},
+                  "host_reference_encode_s": host_s, "card": gpu})
+            del container, forced, back, ref
+    small = english_bytes(MIB).tobytes()
+    for algo in LCPCOMP_SMALL:
+        ref = ref_compress(algo, small)
+        container, enc_s = synced(lambda: compress(algo, small, device="cuda"))
+        if container != ref:
+            raise AssertionError(f"{algo} at 1 MiB: container differs from the host path's")
+        back, dec_s = synced(lambda: decompress(container, device="cuda"))
+        if back != small or ref_decompress(container) != small:
+            raise AssertionError(f"{algo} at 1 MiB: a decode differs from the input")
+        emit({"phase": "lcpcomp roundtrip", "algo": algo, "input": "synth_english", "bytes": MIB,
+              "container_bytes": len(container), "ratio_pct": 100.0 * len(container) / MIB,
+              "encode_s": enc_s, "decode_s": dec_s, "card": gpu})
+    no_jax()
+    return launched_h
+
+
+def lcpcomp_stages_phase(english, dev, gpu) -> None:
+    """Phase 15: the spans of a warm 16 MiB English encode and decode of
+    each phase 14 id on the card and on the host, and the sweep behind the
+    two lcpcomp gates."""
+    import torch
+
+    from tudocomp_tpu_torch import device as tdev
+    from tudocomp_tpu_torch.driver import compress, decompress
+
+    data = english[:LCPCOMP_BYTES].tobytes()
+    stages = {}
+    for algo in LCPCOMP_ALGOS:
+        card_enc, container = phase_spans(lambda: compress(algo, data, device="cuda"))
+        torch.cuda.synchronize()
+        card_dec, back = phase_spans(lambda: decompress(container, device="cuda"))
+        with host_path():
+            host_enc, host_container = phase_spans(lambda: compress(algo, data, device="cpu"))
+            host_dec, host_back = phase_spans(lambda: decompress(container, device="cpu"))
+        if container != host_container or back != data or host_back != data:
+            raise AssertionError(f"{algo}: the staged runs differ from the host path or the input")
+        stages[algo] = {"card": {"encode": card_enc, "decode": card_dec},
+                        "host": {"encode": host_enc, "decode": host_dec}}
+        del container, host_container, back, host_back
+
+    sweep = lcpcomp_sweep(english, dev)
+    no_jax()
+    emit({"phase": "lcpcomp stages", "bytes": LCPCOMP_BYTES, "stages": stages, "gate_sweep_best_of_2_3": sweep,
+          "gates": {"LCPCOMP_MIN_N": tdev.LCPCOMP_MIN_N, "LCPCOMP_DEC_MIN_N": tdev.LCPCOMP_DEC_MIN_N}, "card": gpu})
+
+
+def lcpcomp_sweep(english, dev) -> dict:
+    """The sweep behind device.LCPCOMP_MIN_N and LCPCOMP_DEC_MIN_N, on
+    prefixes of the English text: each device stage against its host
+    counterpart as LCPCompressor would take them."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch import native
+    from tudocomp_tpu_torch.compressors.lcpcomp import arrays_factorize, plcppeaks_factorize, sort_and_flatten
+    from tudocomp_tpu_torch.ds.textds import TextDS
+    from tudocomp_tpu_torch.io.inout import Input
+    from tudocomp_tpu_torch.io.restrict import InputRestrictions
+    from tudocomp_tpu_torch.ops.lcpcomp_torch import plcppeaks_factorize_device, resolve_factors_device
+
+    lib = native.get_lib()
+    sweep = {}
+    for n in LCPCOMP_SWEEP:
+        text = Input(english[:n].tobytes()).with_restrictions(InputRestrictions((0,), True)).as_array()
+        reps = 3 if n <= 4 * MIB else 2
+        ds = TextDS(text, device=dev)
+        arrays = ds.device_arrays()  # None where the host built the SA (below SA_MIN_N)
+        sa_on_card = arrays is not None
+        if not sa_on_card:
+            arrays = tuple(torch.from_numpy(a).to(dev) for a in (ds.require_sa(), ds.require_isa(), ds.require_plcp()))
+        sa, isa, plcp = (a.cpu().numpy() for a in arrays)
+        got, dev_s = best_of(lambda: plcppeaks_factorize_device(*arrays, 5), reps)
+        _, up_s = best_of(lambda: [torch.from_numpy(a).to(dev) for a in (sa, isa, plcp)], reps)
+        _, down_s = best_of(lambda: (arrays[1].cpu(), arrays[2].cpu()), reps)
+        want, host_s = best_of(lambda: plcppeaks_factorize(sa, isa, plcp, 5), reps)
+        if not all(np.array_equal(g, np.asarray(w, np.int64)) for g, w in zip(got, (want.pos, want.src, want.len))):
+            raise AssertionError(f"{n} bytes: the device plcppeaks factors differ from the host's")
+        # the decode of the default strategy's factors, as the stream parse hands them over
+        f = sort_and_flatten(arrays_factorize(sa, isa, ds.require_lcp(), 5), True)
+        tgt, src, lens = (np.ascontiguousarray(a, np.uint32) for a in (f.pos, f.src, f.len))
+        buffer = np.where(f.covered(len(text)), 0, text).astype(np.uint8)
+        fresh = [buffer.copy() for _ in range(reps)]
+        host_dec_s = float("inf")
+        for b in fresh:
+            t0 = time.perf_counter()
+            rc = lib.tdc_lcpcomp_scan_decode(b, len(b), tgt, src, lens, len(tgt), 6)
+            host_dec_s = min(host_dec_s, time.perf_counter() - t0)
+            if rc != 0 or not np.array_equal(b, text):
+                raise AssertionError(f"{n} bytes: the host scan decode differs from the text")
+        out, dev_dec_s = best_of(lambda: resolve_factors_device(buffer, tgt, src, lens, dev), reps)
+        if not np.array_equal(out, text):
+            raise AssertionError(f"{n} bytes: the device chain resolution differs from the text")
+        # the compressor's two sides: where the card built the SA, the host
+        # strategy needs the ISA and PLCP brought down; elsewhere the card's
+        # side needs all three taken up
+        card_s, host_side_s = (dev_s, host_s + down_s) if sa_on_card else (dev_s + up_s, host_s)
+        sweep[n] = {"sa_on_card": sa_on_card, "factors_plcppeaks": len(want.pos), "factors_arrays": len(f.pos),
+                    "plcppeaks_device_s": dev_s, "upload_sa_isa_plcp_s": up_s,
+                    "plcppeaks_host_s": host_s, "isa_plcp_down_s": down_s,
+                    "plcppeaks_host_over_device": host_side_s / card_s,
+                    "resolve_device_s": dev_dec_s, "scan_decode_host_s": host_dec_s,
+                    "host_over_device_decode": host_dec_s / dev_dec_s}
+        del ds, arrays
+        torch.cuda.empty_cache()
+    return sweep
 
 
 if __name__ == "__main__":

@@ -659,3 +659,50 @@ def test_esp_rounds_on_the_card(dev):
     assert kernels.counts()["esp_adjust_windows"] == 9
     want = generate_grammar(data)
     assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+
+
+@pytest.mark.parametrize("threshold", [1, 5])
+def test_lcpcomp_plcppeaks_stage_on_the_card(dev, threshold, monkeypatch):
+    """plcppeaks_factorize_device on CUDA tensors equals its run on the CPU,
+    from the arrays of TextDS (the card's, where the card built the SA)."""
+    from tudocomp_tpu_torch.ds.textds import TextDS
+    from tudocomp_tpu_torch.ops.lcpcomp_torch import plcppeaks_factorize_device
+
+    monkeypatch.setenv("TDC_DEVICE_SA", "1")
+    text = np.frombuffer(_suffix_texts()["english"][:300000] + b"abcab" * 4000 + b"\0", np.uint8)
+    ds = TextDS(text, device=dev)
+    arrays = ds.device_arrays()
+    assert arrays is not None and all(a.is_cuda for a in arrays)
+    got = plcppeaks_factorize_device(*arrays, threshold)
+    want = plcppeaks_factorize_device(*(a.cpu() for a in arrays), threshold)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert len(got[0]) > 1000
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lcpcomp_resolve_stage_on_the_card(dev, seed):
+    """resolve_factors_device on the card equals its run on the CPU, on a
+    seeded factor set with forward and backward chains."""
+    from tests.test_torch_lcpcomp import _random_factors
+    from tudocomp_tpu_torch.ops.lcpcomp_torch import resolve_factors_device
+
+    text, buf, tgt, src, lens = _random_factors(seed)
+    got = resolve_factors_device(buf.copy(), tgt, src, lens, dev)
+    np.testing.assert_array_equal(got, resolve_factors_device(buf.copy(), tgt, src, lens, "cpu"))
+    np.testing.assert_array_equal(got, text)
+
+
+def test_lcpcomp_plcppeaks_roundtrip_on_the_card(dev, monkeypatch):
+    """1 MiB through lcpcomp(coder=huff,comp=plcppeaks) with the device
+    stages forced: the container equals the host path's and both decodes
+    return the input."""
+    algo = "lcpcomp(coder=huff,comp=plcppeaks)"
+    data = tc.english(1 << 20, seed=3)
+    monkeypatch.setenv("TDC_DEVICE_LCPCOMP", "1")
+    c = compress(algo, data, device="cuda")
+    assert decompress(c, device="cuda") == data
+    for var in ("TDC_DEVICE_LCPCOMP", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS"):
+        monkeypatch.setenv(var, "0")
+    assert c == compress(algo, data, device="cpu")
+    assert decompress(c, device="cpu") == data

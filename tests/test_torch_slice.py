@@ -133,6 +133,7 @@ _JAX_FREE = textwrap.dedent(
     """
     import os, sys
     sys.modules["jax"] = None  # any import of jax now fails
+    NO_LZ78 = (("lz78", "arithmetic"), ("lz78", "sle"))  # lz78 feeds these coders no literals
     sys.modules["tudocomp_tpu"] = None  # and of the JAX package
     os.environ["TDC_DEVICE_HUFF"] = "1"
     from tudocomp_tpu_torch.driver import compress, decompress
@@ -149,7 +150,7 @@ _JAX_FREE = textwrap.dedent(
         # lzw, each lz78trie, and blockwise with a shared table
         reg = TorchRegistry("cpu")
         coders = reg.names("coder")
-        ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in coders if (c, k) != ("lz78", "arithmetic")]
+        ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in coders if (c, k) not in NO_LZ78]
         coders = [k for k in coders if k != "arithmetic"]
         ids += [f"lz78(coder=bit,lz78trie={t})" for t in reg.names("lz78trie")]
         ids += ["blockwise(encode(huff),bs=4096,shared=1)", "blockwise(lzw(coder=gamma),bs=4096)"]
@@ -165,6 +166,11 @@ _JAX_FREE = textwrap.dedent(
         for sa, lz in ("11", "10", "01"):  # the device suffix array and factorization, forced
             os.environ["TDC_DEVICE_SA"], os.environ["TDC_DEVICE_LZSS"] = sa, lz
             assert [compress(algo, data, device="cpu") for algo in lzss] == host, (sa, lz)
+        lcpcomp = ("lcpcomp(coder=huff)", "lcpcomp(coder=sle,comp=plcppeaks,dec=compact)")
+        host = [compress(algo, data, device="cpu") for algo in lcpcomp]
+        os.environ["TDC_DEVICE_LCPCOMP"] = "1"  # the plcppeaks walk and the chain-resolving decode, forced
+        assert [compress(algo, data, device="cpu") for algo in lcpcomp] == host
+        assert all(decompress(c, device="cpu") == data for c in host)
         esp_ids = ["esp", "esp(slp_coder=sorted)", "esp(slp_coder=sorted(d_coding=arith))"]
         esp_data = data * 6  # past 2 x esp_grammar_device's threshold: one device round
         host = [compress(algo, esp_data, device="cpu") for algo in esp_ids]
@@ -208,10 +214,12 @@ def _host_ids():
     from tudocomp_tpu_torch.registry import TorchRegistry
 
     reg = TorchRegistry("cpu")
-    # the consuming arithmetic coder neither encodes under lz78 nor
-    # roundtrips under lzss_lcp, in either package
-    # (test_arithmetic_under_lz78_and_lzss_fails_in_both_packages)
-    ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in reg.names("coder") if (c, k) != ("lz78", "arithmetic")]
+    # the consuming coders encode under lz78 in neither package, and the
+    # arithmetic coder does not roundtrip under lzss_lcp
+    # (test_arithmetic_under_lz78_and_lzss_fails_in_both_packages,
+    # test_sle_under_lz78_fails_in_both_packages)
+    no_lz78 = (("lz78", "arithmetic"), ("lz78", "sle"))
+    ids = [f"{c}({k})" for c in ("encode", "lz78", "lzw") for k in reg.names("coder") if (c, k) not in no_lz78]
     ids += [f"lzss_lcp(coder={k})" for k in reg.names("coder") if k != "arithmetic"]
     ids += [f"lzss_lcp(coder=huff,textds=textds(isa={i},lcp={l}))" for i in reg.names("isa") for l in reg.names("lcp")]
     ids += [f"{c}(coder=bit,lz78trie={t})" for c in ("lz78", "lzw") for t in reg.names("lz78trie")]
@@ -243,6 +251,15 @@ def test_arithmetic_under_lz78_and_lzss_fails_in_both_packages():
         jax_decompress(want)
     with pytest.raises(IndexError):
         decompress(want, device="cpu")
+
+
+def test_sle_under_lz78_fails_in_both_packages():
+    """lz78 feeds its coder no literals, so the sle coder's ranking is
+    empty and its first literal finds no rank, in both packages."""
+    with pytest.raises(KeyError):
+        jax_compress("lz78(coder=sle)", _HOST_DATA)
+    with pytest.raises(KeyError):
+        compress("lz78(coder=sle)", _HOST_DATA, device="cpu")
 
 
 @pytest.mark.parametrize("algo", _host_ids())
@@ -290,7 +307,8 @@ def test_port_imports_nothing_of_the_jax_package():
     "algo",
     ["encode(huff)", "lz78(coder=bit)", "lz78(coder=gamma)", "lzw(coder=bit)",
      "blockwise(encode(huff),bs=1024,shared=1)", "lzss_lcp(coder=huff)",
-     "lzss_lcp(coder=gamma,textds=textds(isa=sparse_isa))"],
+     "lzss_lcp(coder=gamma,textds=textds(isa=sparse_isa))",
+     "lcpcomp(coder=huff,comp=heap)", "lcpcomp(coder=sle,comp=plcppeaks,dec=QueueListBuffer)"],
 )
 def test_host_path_without_the_cpp_helpers(algo, monkeypatch):
     """Where g++ is missing the port's host layers take their Python paths

@@ -123,7 +123,8 @@ def test_textds_device_hook(device_sa, monkeypatch):
     monkeypatch.setenv("TDC_DEVICE_SA", device_sa)
     ds = TextDS(text, device="cpu")
     ds.require(flags.SA | flags.ISA | flags.LCP)
-    assert (ds._isa_device is None) and (ds._isa is not None)
+    # the ISA came to the host; its device copy stays where the device built it
+    assert (ds._isa is not None) and ((ds._isa_d is not None) == (device_sa == "1"))
     # on the device only the LCP comes back until the PLCP is asked for
     assert (ds._plcp is None) == (device_sa == "1") == (ds._plcp_d is not None)
     ds.require(flags.PLCP)

@@ -16,7 +16,11 @@
 //     expansion (tdc_esp_derive), the canonical index decode of the
 //     huffman d_coding, and the longest increasing subsequence of the
 //     optimal subseq strategy (tdc_lis_indices, the port's own);
-//   - the arithmetic coder's encode and decode loops.
+//   - the arithmetic coder's encode and decode loops;
+//   - lcpcomp: the six factorization strategies (arrays, heap, bheap,
+//     plcp, max_lcp, plcppeaks; the heap strategies share SlottedMaxHeap),
+//     the factor flatten, and the four decoders (scan, compact, queue
+//     list, multimap).
 // Every entry point returns what the JAX package's copy returns on the same
 // input, so the port's host path writes the same bytes. The JAX package's
 // other trie backends are left out: every trie gives the same factors, so
@@ -27,6 +31,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -1272,6 +1277,685 @@ int64_t tdc_lis_indices(const int64_t* y, int64_t n, int64_t* out) {
     for (int64_t k = tails_idx.back(); k != -1; k = prev[(size_t)k]) out[len++] = k;
     std::reverse(out, out + len);
     return len;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// lcpcomp
+
+// Slotted binary max-heap with erase/decrease-key by ELEMENT INDEX — the
+// shared engine of the lcpcomp heap strategies (heap/bheap/plcp). The
+// operation sequences are identical to the previous per-function copies,
+// so emitted factor sets are unchanged; for bheap/plcp the order is total
+// anyway, making the heap implementation unobservable.
+template <class Less>
+struct SlottedMaxHeap {
+    std::vector<int64_t> heap;  // heap of element indices
+    std::vector<int64_t> slot;  // element index -> heap position (-1 = out)
+    Less less;
+    SlottedMaxHeap(int64_t n, Less l) : slot((size_t)n, -1), less(l) {}
+    bool empty() const { return heap.empty(); }
+    int64_t top() const { return heap[0]; }
+    bool contains(int64_t idx) const { return slot[idx] >= 0; }
+    void swap_slots(int64_t i, int64_t j) {
+        std::swap(heap[i], heap[j]);
+        slot[heap[i]] = i;
+        slot[heap[j]] = j;
+    }
+    void sift_up(int64_t i) {
+        while (i > 0 && less(heap[(i - 1) / 2], heap[i])) {
+            swap_slots(i, (i - 1) / 2);
+            i = (i - 1) / 2;
+        }
+    }
+    void sift_down(int64_t i) {
+        int64_t sz = (int64_t)heap.size();
+        while (true) {
+            int64_t l = 2 * i + 1, r = 2 * i + 2, m = i;
+            if (l < sz && less(heap[m], heap[l])) m = l;
+            if (r < sz && less(heap[m], heap[r])) m = r;
+            if (m == i) break;
+            swap_slots(i, m);
+            i = m;
+        }
+    }
+    void push_raw(int64_t idx) {  // bulk insert; call heapify() after
+        slot[idx] = (int64_t)heap.size();
+        heap.push_back(idx);
+    }
+    void heapify() {
+        for (int64_t i = (int64_t)heap.size() / 2 - 1; i >= 0; --i)
+            sift_down(i);
+    }
+    void push(int64_t idx) {
+        push_raw(idx);
+        sift_up((int64_t)heap.size() - 1);
+    }
+    void erase(int64_t idx) {
+        int64_t s = slot[idx];
+        if (s < 0) return;
+        int64_t last = (int64_t)heap.size() - 1;
+        if (s != last) swap_slots(s, last);
+        slot[heap[last]] = -1;
+        heap.pop_back();
+        if (s < (int64_t)heap.size()) {
+            sift_down(s);
+            sift_up(s);
+        }
+    }
+};
+
+extern "C" {
+
+// lcpcomp "arrays" factorization strategy (exact mirror of
+// lcpcomp/compress/ArraysComp.hpp:36-119): candidates bucketed by LCP
+// value; repeatedly take a maximal-LCP suffix array position, emit factor
+// (sa[index] <- sa[index-1], lcp[index] chars), zero the LCP of replaced
+// suffixes and clamp intersecting entries, pushing shrunk candidates down
+// to their new bucket. Mutates lcp. Factors are emitted in max-LCP order
+// (caller sorts by position). Returns factor count.
+int64_t tdc_lcpcomp_arrays_factorize(const int32_t* sa, const int32_t* isa,
+                                     int32_t* lcp, int64_t n,
+                                     int64_t threshold, uint32_t* fpos,
+                                     uint32_t* fsrc, uint32_t* flen) {
+    int64_t max_lcp = 0;
+    for (int64_t i = 0; i < n; ++i) max_lcp = std::max<int64_t>(max_lcp, lcp[i]);
+    if (max_lcp + 1 <= threshold) return 0;
+    const int64_t cand_length = max_lcp + 1 - threshold;
+    std::vector<std::vector<uint32_t>> cand((size_t)cand_length);
+    for (int64_t i = 1; i < n; ++i) {
+        if (lcp[i] < threshold) continue;
+        cand[lcp[i] - threshold].push_back((uint32_t)i);
+    }
+    int64_t nf = 0;
+    for (int64_t maxlcp = max_lcp; maxlcp >= threshold; --maxlcp) {
+        std::vector<uint32_t>& col = cand[maxlcp - threshold];
+        for (size_t ci = 0; ci < col.size(); ++ci) {
+            const uint32_t index = col[ci];
+            const int64_t lcp_value = lcp[index];
+            if (lcp_value < maxlcp) {  // resized: push down
+                if (lcp_value < threshold) continue;  // erased
+                cand[lcp_value - threshold].push_back(index);
+                continue;
+            }
+            const int64_t pos_target = sa[index];
+            const int64_t pos_source = sa[index - 1];
+            const int64_t factor_length = lcp[index];
+            fpos[nf] = (uint32_t)pos_target;
+            fsrc[nf] = (uint32_t)pos_source;
+            flen[nf] = (uint32_t)factor_length;
+            ++nf;
+            for (int64_t k = 0; k < factor_length; ++k)
+                lcp[isa[pos_target + k]] = 0;
+            const int64_t max_affect = std::min(factor_length, pos_target);
+            for (int64_t k = 0; k < max_affect; ++k) {
+                const int64_t ind_suffix = isa[pos_target - k - 1];
+                lcp[ind_suffix] = std::min<int32_t>((int32_t)(k + 1), lcp[ind_suffix]);
+            }
+        }
+        col.clear();
+    }
+    return nf;
+}
+
+// lcpcomp "heap" strategy (lcpcomp/compress/MaxHeapStrategy.hpp:22-103 +
+// ds/ArrayMaxHeap.hpp): max-heap over LCP values; repeatedly pop the
+// maximum, emit the factor, remove overlapped suffixes and decrease keys
+// of intersecting ones. (Tie order among equal LCP values is heap-shape
+// dependent, here as in the reference.) Returns factor count.
+int64_t tdc_lcpcomp_heap_factorize(const int32_t* sa, const int32_t* isa,
+                                   const int32_t* lcp, int64_t n,
+                                   int64_t threshold, uint32_t* fpos,
+                                   uint32_t* fsrc, uint32_t* flen) {
+    std::vector<int32_t> key(lcp, lcp + n);
+    auto less = [&](int64_t a, int64_t b) { return key[a] < key[b]; };
+    SlottedMaxHeap<decltype(less)> heap(n, less);
+    for (int64_t i = 1; i < n; ++i)
+        if (lcp[i] >= threshold) heap.push_raw(i);
+    heap.heapify();
+
+    int64_t nf = 0;
+    while (!heap.empty()) {
+        int64_t m = heap.top();
+        int64_t p = sa[m];
+        int64_t src = sa[m - 1];
+        int64_t len = key[m];
+        fpos[nf] = (uint32_t)p;
+        fsrc[nf] = (uint32_t)src;
+        flen[nf] = (uint32_t)len;
+        ++nf;
+        for (int64_t k = 0; k < len; ++k) heap.erase(isa[p + k]);
+        for (int64_t k = 0; k < len && p > k; ++k) {
+            int64_t s = p - k - 1;
+            int64_t i = isa[s];
+            if (heap.contains(i) && s + key[i] > p) {
+                int64_t l = p - s;
+                if (l >= threshold) {
+                    key[i] = (int32_t)l;
+                    heap.sift_down(heap.slot[i]);
+                } else {
+                    heap.erase(i);
+                }
+            }
+        }
+    }
+    return nf;
+}
+
+// BoostHeap strategy ("bheap", compressors/lcpcomp/compress/BoostHeap.hpp:
+// 24-119): same greedy max-LCP selection as the heap strategy but with the
+// reference's total order — ties on LCP break toward the SMALLER text
+// position sa[i] — so the emitted factor set matches the Boost-gated
+// reference strategy exactly (any max-heap with the same comparator yields
+// the same top sequence; the order is total, so the pairing heap vs this
+// slotted binary heap is observationally identical).
+int64_t tdc_lcpcomp_bheap_factorize(const int32_t* sa, const int32_t* isa,
+                                    const int32_t* lcp, int64_t n,
+                                    int64_t threshold, uint32_t* fpos,
+                                    uint32_t* fsrc, uint32_t* flen) {
+    std::vector<int32_t> key(lcp, lcp + n);
+    auto less = [&](int64_t a, int64_t b) {
+        if (key[a] != key[b]) return key[a] < key[b];
+        return sa[a] > sa[b];  // equal LCP: smaller text position wins
+    };
+    SlottedMaxHeap<decltype(less)> heap(n, less);
+    for (int64_t i = 1; i < n; ++i)
+        if (lcp[i] >= threshold) heap.push_raw(i);
+    heap.heapify();
+
+    int64_t nf = 0;
+    while (!heap.empty()) {
+        int64_t m = heap.top();
+        int64_t p = sa[m];
+        int64_t src = sa[m - 1];
+        int64_t len = key[m];
+        fpos[nf] = (uint32_t)p;
+        fsrc[nf] = (uint32_t)src;
+        flen[nf] = (uint32_t)len;
+        ++nf;
+        for (int64_t k = 0; k < len; ++k) heap.erase(isa[p + k]);
+        for (int64_t k = 0; k < len && p > k; ++k) {
+            int64_t s = p - k - 1;
+            int64_t i = isa[s];
+            if (heap.contains(i) && s + key[i] > p) {
+                int64_t l = p - s;
+                if (l >= threshold) {
+                    key[i] = (int32_t)l;
+                    heap.sift_down(heap.slot[i]);
+                } else {
+                    heap.erase(i);
+                }
+            }
+        }
+    }
+    return nf;
+}
+
+// PLCP peak strategy ("plcp", compressors/lcpcomp/compress/
+// PLCPStrategy.hpp:20-170): stream the PLCP array left to right, keep the
+// current ascent's peaks in a max-heap ordered by (lcp, smaller pos),
+// and when a peak group ends (i - lastpos >= lastpos_lcp) factorize the
+// peaks greedily, substituting right peaks and trimming left overlaps.
+// Semantic mirror of the Boost-gated reference strategy; the Poi order is
+// total, so the heap implementation does not affect the output.
+int64_t tdc_lcpcomp_plcp_factorize(const int32_t* sa, const int32_t* isa,
+                                   const int32_t* plcp, int64_t n,
+                                   int64_t threshold, uint32_t* fpos,
+                                   uint32_t* fsrc, uint32_t* flen) {
+    struct Poi {
+        int64_t pos, lcp, no;
+    };
+    std::vector<Poi> pois;  // by handle number (insertion order)
+
+    auto less = [&](int64_t a, int64_t b) {
+        if (pois[a].lcp != pois[b].lcp) return pois[a].lcp < pois[b].lcp;
+        return pois[a].pos > pois[b].pos;  // equal lcp: smaller pos wins
+    };
+    SlottedMaxHeap<decltype(less)> h(0, less);
+    auto erase_no = [&](int64_t no) { h.erase(no); };
+    auto emplace = [&](int64_t pos, int64_t lcp, int64_t no) {
+        if ((int64_t)pois.size() <= no) {
+            pois.resize((size_t)no + 1);
+            h.slot.resize((size_t)no + 1, -1);
+        }
+        pois[(size_t)no] = Poi{pos, lcp, no};
+        h.push(no);
+    };
+
+    int64_t nf = 0;
+    int64_t lastpos = 0, lastpos_lcp = 0;
+    int64_t handle_count = 0;
+    for (int64_t i = 0; i + 1 < n; ++i) {
+        const int64_t plcp_i = plcp[i];
+        if (h.empty()) {
+            if (plcp_i >= threshold) {
+                emplace(i, plcp_i, handle_count++);
+                lastpos = i;
+                lastpos_lcp = plcp_i;
+            }
+            continue;
+        }
+        if (i - lastpos >= lastpos_lcp || i + 1 == n) {
+            while (!h.empty()) {
+                const Poi top = pois[(size_t)h.top()];
+                const int64_t source = sa[isa[top.pos] - 1];
+                fpos[nf] = (uint32_t)top.pos;
+                fsrc[nf] = (uint32_t)source;
+                flen[nf] = (uint32_t)top.lcp;
+                ++nf;
+                const int64_t next_pos = top.pos;
+                {
+                    int64_t newlcp_peak = 0;
+                    bool peak_exists = false;
+                    if (top.pos + top.lcp < i) {
+                        for (int64_t j = top.no + 1; j < handle_count; ++j) {
+                            if (!h.contains(j)) continue;
+                            const Poi poi = pois[(size_t)j];
+                            if (poi.pos < next_pos + top.lcp) {
+                                erase_no(j);
+                                if (poi.lcp + poi.pos > next_pos + top.lcp) {
+                                    const int64_t remaining =
+                                        poi.lcp + poi.pos - (next_pos + top.lcp);
+                                    if (remaining > newlcp_peak)
+                                        newlcp_peak = remaining;
+                                }
+                            } else if (poi.pos == next_pos + top.lcp) {
+                                peak_exists = true;
+                            } else {
+                                break;
+                            }
+                        }
+                    }
+                    if (!peak_exists && newlcp_peak >= threshold) {
+                        emplace(next_pos + top.lcp, newlcp_peak, top.no + 1);
+                    }
+                }
+                erase_no(top.no);
+                for (int64_t j = handle_count - 1; j >= 0; --j) {
+                    if (!h.contains(j)) continue;
+                    Poi& poi = pois[(size_t)j];
+                    if (poi.pos > next_pos) continue;
+                    const int64_t newlcp = next_pos - poi.pos;
+                    if (newlcp < poi.lcp) {
+                        if (newlcp < threshold) {
+                            erase_no(j);
+                        } else {
+                            poi.lcp = newlcp;
+                            h.sift_down(h.slot[j]);
+                        }
+                    } else {
+                        break;
+                    }
+                }
+            }
+            handle_count = 0;
+            pois.clear();
+            h.slot.clear();
+            --i;
+            continue;
+        }
+        if (plcp_i <= lastpos_lcp) continue;
+        emplace(i, plcp_i, handle_count++);
+        lastpos = i;
+        lastpos_lcp = plcp_i;
+    }
+    return nf;
+}
+
+// FactorBuffer::flatten (lzss/LZSSFactors.hpp:79-132): rewrite factor
+// sources that point into other factors to their (transitively) flattened
+// source when fully contained. Factors must be sorted by pos.
+void tdc_lcpcomp_flatten(uint32_t* fpos, uint32_t* fsrc, uint32_t* flen,
+                         int64_t nf) {
+    if (nf == 0) return;
+    const int64_t map_size = (int64_t)fpos[nf - 1] + flen[nf - 1];
+    std::vector<uint32_t> fmap((size_t)map_size, 0);  // pos -> factor id + 1
+    for (int64_t i = 0; i < nf; ++i)
+        for (uint32_t j = 0; j < flen[i]; ++j) fmap[fpos[i] + j] = (uint32_t)i + 1;
+    for (int64_t i = 0; i < nf; ++i) {
+        int64_t src = fsrc[i];
+        int64_t depth = 0;
+        while (src < map_size && fmap[src]) {
+            const int64_t s = fmap[src] - 1;
+            const int64_t d = src - fpos[s];
+            if (d + flen[i] <= flen[s]) {
+                src = fsrc[s] + d;
+                ++depth;
+            } else {
+                break;
+            }
+        }
+        if (depth) fsrc[i] = (uint32_t)src;
+    }
+}
+
+// lcpcomp scan decoding (lcpcomp/decompress/ScanDec.hpp): buffer starts
+// with the gap literals placed (0 = empty); factors arrive in stream order
+// with absolute target positions. Parse-time immediate copies, `scans`
+// lazy passes, then the eager pass with forward-reference buckets
+// (recursion converted to an explicit stack). Returns 0 on success.
+int32_t tdc_lcpcomp_scan_decode(uint8_t* buffer, int64_t n,
+                                const uint32_t* tgt0, const uint32_t* src0,
+                                const uint32_t* len0, int64_t nf0,
+                                int64_t scans) {
+    // parse-phase immediate copies (ScanDec::decode_factor :221-236)
+    std::vector<uint32_t> tgt, src, len;
+    tgt.reserve((size_t)nf0);
+    src.reserve((size_t)nf0);
+    len.reserve((size_t)nf0);
+    for (int64_t j = 0; j < nf0; ++j) {
+        bool stored = false;
+        for (uint32_t i = 0; i < len0[j]; ++i) {
+            const int64_t sp = (int64_t)src0[j] + i;
+            if (buffer[sp]) {
+                buffer[tgt0[j] + i] = buffer[sp];
+            } else if (!stored) {
+                stored = true;
+                tgt.push_back(tgt0[j] + i);
+                src.push_back((uint32_t)sp);
+                len.push_back(len0[j] - i);
+            }
+        }
+    }
+    // lazy scans (ScanDec::decode_lazy_ :180-193)
+    for (int64_t s = 0; s < scans; ++s) {
+        for (size_t j = 0; j < tgt.size(); ++j) {
+            for (uint32_t i = 0; i < len[j]; ++i)
+                buffer[tgt[j] + i] = buffer[src[j] + i];
+        }
+    }
+    // eager pass (EagerScanDec :26-135)
+    std::vector<int32_t> rank((size_t)n, -1);
+    int64_t empties = 0;
+    for (int64_t i = 0; i < n; ++i)
+        if (!buffer[i]) rank[i] = (int32_t)empties++;
+    std::vector<std::vector<uint32_t>> fwd((size_t)empties);
+    std::vector<uint32_t> stack;
+    auto decode_literal_at = [&](uint32_t pos, uint8_t c) {
+        stack.clear();
+        stack.push_back(pos);
+        while (!stack.empty()) {
+            uint32_t p = stack.back();
+            stack.pop_back();
+            buffer[p] = c;
+            const int32_t r = rank[p];
+            if (r >= 0 && !fwd[r].empty()) {
+                for (uint32_t q : fwd[r]) stack.push_back(q);
+                fwd[r].clear();
+                fwd[r].shrink_to_fit();
+            }
+        }
+    };
+    for (size_t j = 0; j < tgt.size(); ++j) {
+        for (uint32_t i = 0; i < len[j]; ++i) {
+            const int64_t sp = (int64_t)src[j] + i;
+            if (buffer[sp]) {
+                decode_literal_at(tgt[j] + i, buffer[sp]);
+            } else {
+                fwd[rank[sp]].push_back(tgt[j] + i);
+            }
+        }
+    }
+    for (int64_t i = 0; i < n; ++i)
+        if (!buffer[i] && i + 1 != n) return -1;  // undecodable position
+    return 0;
+}
+
+// lcpcomp "max_lcp" strategy (lcpcomp/compress/MaxLCPStrategy.hpp:22-99 over
+// MaxLCPSuffixList.hpp): a bucket list sorted by LCP descending where
+// insertion goes to the bucket *front* (most-recent-first tie order,
+// MaxLCPSuffixList::insert :80-123). Realized as per-LCP LIFO stacks with
+// lazy deletion: stale entries (removed or decrease-keyed away) are skipped
+// when popped. Emits the same factors as the reference list walk.
+int64_t tdc_lcpcomp_maxlcp_factorize(const int32_t* sa, const int32_t* isa,
+                                     const int32_t* lcp, int64_t n,
+                                     int64_t threshold, uint32_t* fpos,
+                                     uint32_t* fsrc, uint32_t* flen) {
+    int64_t max_lcp = 0;
+    for (int64_t i = 1; i < n; ++i) max_lcp = std::max<int64_t>(max_lcp, lcp[i]);
+    if (max_lcp < threshold) return 0;
+    std::vector<int32_t> key(lcp, lcp + n);
+    std::vector<uint8_t> alive((size_t)n, 0);
+    std::vector<std::vector<uint32_t>> bucket((size_t)max_lcp + 1);
+    for (int64_t i = 1; i < n; ++i) {
+        if (lcp[i] >= threshold) {
+            bucket[lcp[i]].push_back((uint32_t)i);
+            alive[i] = 1;
+        }
+    }
+    int64_t nf = 0;
+    for (int64_t cur = max_lcp; cur >= threshold;) {
+        std::vector<uint32_t>& b = bucket[cur];
+        if (b.empty()) {
+            --cur;
+            continue;
+        }
+        const uint32_t m = b.back();
+        b.pop_back();
+        if (!alive[m] || key[m] != cur) continue;  // stale entry
+        const int64_t p = sa[m];
+        const int64_t len = key[m];
+        fpos[nf] = (uint32_t)p;
+        fsrc[nf] = (uint32_t)sa[m - 1];
+        flen[nf] = (uint32_t)len;
+        ++nf;
+        // remove overlapped entries (MaxLCPStrategy.hpp:73-78)
+        for (int64_t k = 0; k < len; ++k) alive[isa[p + k]] = 0;
+        // correct intersecting entries (:81-94)
+        for (int64_t k = 0; k < len && p > k; ++k) {
+            const int64_t s = p - k - 1;
+            const int64_t i = isa[s];
+            if (alive[i] && s + key[i] > p) {
+                const int64_t l = p - s;
+                if (l >= threshold) {
+                    key[i] = (int32_t)l;
+                    bucket[l].push_back((uint32_t)i);
+                } else {
+                    alive[i] = 0;
+                }
+            }
+        }
+    }
+    return nf;
+}
+
+// lcpcomp "plcppeaks" strategy (lcpcomp/compress/PLCPPeaksStrategy.hpp:
+// 33-80): a single left-to-right pass over the PLCP array taking every
+// local peak >= threshold as a factor and skipping its length.
+int64_t tdc_lcpcomp_plcppeaks_factorize(const int32_t* sa, const int32_t* isa,
+                                        const int32_t* plcp, int64_t n,
+                                        int64_t threshold, uint32_t* fpos,
+                                        uint32_t* fsrc, uint32_t* flen) {
+    int64_t nf = 0;
+    int64_t last_replacement_pos = 0;
+    for (int64_t i = 0; i + 1 < n;) {
+        if ((i == last_replacement_pos || plcp[i] > plcp[i - 1]) &&
+            plcp[i] > plcp[i + 1] && plcp[i] >= threshold) {
+            fpos[nf] = (uint32_t)i;
+            fsrc[nf] = (uint32_t)sa[isa[i] - 1];
+            flen[nf] = (uint32_t)plcp[i];
+            ++nf;
+            i += plcp[i];
+            last_replacement_pos = i - 1;
+        } else {
+            ++i;
+        }
+    }
+    return nf;
+}
+
+// lcpcomp "compact" decoding (lcpcomp/decompress/CompactDec.hpp:39-117):
+// fully eager — no lazy scans; every unresolved source position gets a
+// forward bucket, resolved transitively the moment its literal is decoded
+// (recursion converted to an explicit stack). Gap literals are pre-placed
+// in the buffer by the stream parse, so factor processing in target order
+// is exactly the reference's interleaved decode_literal/decode_factor walk.
+int32_t tdc_lcpcomp_compact_decode(uint8_t* buffer, int64_t n,
+                                   const uint32_t* tgt, const uint32_t* src,
+                                   const uint32_t* len, int64_t nf) {
+    std::vector<std::vector<uint32_t>> fwd((size_t)n);
+    std::vector<uint32_t> stack;
+    auto decode_literal_at = [&](uint32_t pos, uint8_t c) {
+        stack.clear();
+        stack.push_back(pos);
+        while (!stack.empty()) {
+            uint32_t p = stack.back();
+            stack.pop_back();
+            buffer[p] = c;
+            if (!fwd[p].empty()) {
+                for (uint32_t q : fwd[p]) stack.push_back(q);
+                fwd[p].clear();
+                fwd[p].shrink_to_fit();
+            }
+        }
+    };
+    for (int64_t j = 0; j < nf; ++j) {
+        for (uint32_t i = 0; i < len[j]; ++i) {
+            const int64_t sp = (int64_t)src[j] + i;
+            if (buffer[sp]) {
+                decode_literal_at(tgt[j] + i, buffer[sp]);
+            } else {
+                fwd[sp].push_back(tgt[j] + i);
+            }
+        }
+    }
+    for (int64_t i = 0; i < n; ++i)
+        if (!buffer[i] && i + 1 != n) return -1;  // undecodable position
+    return 0;
+}
+
+// Queue-list decoder (capability mirror of
+// lcpcomp/decompress/DecodeQueueListBuffer.hpp:12-86): replays the stream
+// in cursor order — literals resolve their own position, factor positions
+// copy immediately when the source is already decoded and otherwise queue
+// the target on the source's per-position forward list; resolving a
+// position propagates through its list (iteratively, not recursively).
+// buffer arrives with literals pre-placed (0 = undecoded factor target);
+// factors are in stream (target) order.
+int32_t tdc_lcpcomp_queuelist_decode(uint8_t* buffer, int64_t n,
+                                     const uint32_t* tgt, const uint32_t* src,
+                                     const uint32_t* len, int64_t nf) {
+    std::vector<uint8_t> decoded((size_t)n, 0);
+    for (int64_t j = 0; j < nf; ++j)  // factor spans start undecoded
+        for (uint32_t i = 0; i < len[j]; ++i) decoded[tgt[j] + i] = 2;
+    for (int64_t i = 0; i < n; ++i) decoded[i] = decoded[i] != 2;
+
+    std::vector<std::vector<uint32_t>> fwd((size_t)n);
+    std::vector<uint32_t> stack;
+    auto decode_literal_at = [&](uint32_t pos, uint8_t c) {
+        stack.clear();
+        stack.push_back(pos);
+        while (!stack.empty()) {
+            uint32_t p = stack.back();
+            stack.pop_back();
+            buffer[p] = c;
+            decoded[p] = 1;
+            if (!fwd[p].empty()) {
+                for (uint32_t q : fwd[p]) stack.push_back(q);
+                std::vector<uint32_t>().swap(fwd[p]);
+            }
+        }
+    };
+
+    int64_t cursor = 0, f = 0;
+    while (cursor < n) {
+        if (f < nf && cursor == (int64_t)tgt[f]) {
+            for (uint32_t i = 0; i < len[f]; ++i, ++cursor) {
+                const int64_t sp = (int64_t)src[f] + i;
+                if (decoded[sp])
+                    decode_literal_at((uint32_t)cursor, buffer[sp]);
+                else
+                    fwd[sp].push_back((uint32_t)cursor);
+            }
+            ++f;
+        } else {
+            decode_literal_at((uint32_t)cursor, buffer[cursor]);
+            ++cursor;
+        }
+    }
+    for (int64_t i = 0; i < n; ++i)
+        if (!decoded[i] && i + 1 != n) return -1;
+    return 0;
+}
+
+// Multimap decoder (capability mirror of
+// lcpcomp/decompress/MultiMapBuffer.hpp:12-160): stream replay copies
+// eagerly where possible and stores each factor's unresolved remainder
+// once; then `lazy` plain copy rounds over the stored factors; finally an
+// eager pass that queues still-unresolved positions in an
+// unordered_multimap<src, tgt> and propagates through it.
+int32_t tdc_lcpcomp_multimap_decode(uint8_t* buffer, int64_t n,
+                                    const uint32_t* tgt, const uint32_t* src,
+                                    const uint32_t* len, int64_t nf,
+                                    int64_t lazy) {
+    std::vector<uint8_t> decoded((size_t)n, 0);
+    for (int64_t j = 0; j < nf; ++j)
+        for (uint32_t i = 0; i < len[j]; ++i) decoded[tgt[j] + i] = 2;
+    for (int64_t i = 0; i < n; ++i) decoded[i] = decoded[i] != 2;
+
+    // stream replay (decode_factor): immediate copies + remainder store
+    std::vector<uint32_t> r_tgt, r_src, r_len;
+    for (int64_t j = 0; j < nf; ++j) {
+        bool stored = false;
+        for (uint32_t i = 0; i < len[j]; ++i) {
+            const int64_t sp = (int64_t)src[j] + i;
+            const uint32_t tp = tgt[j] + i;
+            if (decoded[sp]) {
+                buffer[tp] = buffer[sp];
+                decoded[tp] = 1;
+            } else if (!stored) {
+                stored = true;
+                r_tgt.push_back(tp);
+                r_src.push_back((uint32_t)sp);
+                r_len.push_back(len[j] - i);
+            }
+        }
+    }
+    // lazy rounds (decode_lazy_): plain copies, no propagation
+    for (int64_t round = 0; round < lazy; ++round) {
+        for (size_t j = 0; j < r_tgt.size(); ++j) {
+            for (uint32_t i = 0; i < r_len[j]; ++i) {
+                const int64_t sp = (int64_t)r_src[j] + i;
+                if (decoded[sp]) {
+                    buffer[r_tgt[j] + i] = buffer[sp];
+                    decoded[r_tgt[j] + i] = 1;
+                }
+            }
+        }
+    }
+    // eager pass (decode_eagerly) with multimap propagation
+    std::unordered_multimap<uint32_t, uint32_t> fwd;
+    fwd.max_load_factor(0.8f);
+    std::vector<uint32_t> stack;
+    auto decode_literal_at = [&](uint32_t pos, uint8_t c) {
+        stack.clear();
+        stack.push_back(pos);
+        while (!stack.empty()) {
+            uint32_t p = stack.back();
+            stack.pop_back();
+            buffer[p] = c;
+            decoded[p] = 1;
+            auto range = fwd.equal_range(p);
+            for (auto it = range.first; it != range.second; ++it)
+                stack.push_back(it->second);
+            fwd.erase(range.first, range.second);
+        }
+    };
+    for (size_t j = 0; j < r_tgt.size(); ++j) {
+        for (uint32_t i = 0; i < r_len[j]; ++i) {
+            const int64_t sp = (int64_t)r_src[j] + i;
+            const uint32_t tp = r_tgt[j] + i;
+            if (decoded[tp]) continue;  // resolved by a lazy round
+            if (decoded[sp])
+                decode_literal_at(tp, buffer[sp]);
+            else
+                fwd.emplace((uint32_t)sp, tp);
+        }
+    }
+    for (int64_t i = 0; i < n; ++i)
+        if (!decoded[i] && i + 1 != n) return -1;
+    return 0;
 }
 
 }  // extern "C"

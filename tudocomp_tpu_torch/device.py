@@ -14,8 +14,12 @@ paths on the CPU. The blockwise parse has a size gate on top
 host coder builds its one table, so it always runs the device stages.
 TDC_DEVICE_SA and TDC_DEVICE_LZSS do the same for the suffix array and the
 LZSS factorization of lzss_lcp, each with a size gate of its own
-(use_sa_device, use_lzss_device), and TDC_DEVICE_ESP for the ESP rounds
-(use_esp_device). The PLCP and LCP arrays have no gate of
+(use_sa_device, use_lzss_device), TDC_DEVICE_ESP for the ESP rounds
+(use_esp_device), and TDC_DEVICE_LCPCOMP for lcpcomp's two device stages,
+the plcppeaks factorization (use_lcpcomp_device) and the chain-resolving
+decode (use_lcpcomp_decode_device): one variable for both, each with a size
+gate of its own. (The JAX package keeps both lcpcomp stages opt-in, and its
+decode from 4 MiB, from a TPU's gather costs; neither carries over.) The PLCP and LCP arrays have no gate of
 their own: TextDS computes them on the device exactly when the device built
 the suffix array, which then lies there already.
 """
@@ -26,7 +30,16 @@ import os
 
 import torch
 
-__all__ = ["resolve", "use_device", "use_esp_device", "use_lzss_device", "use_parse_device", "use_sa_device"]
+__all__ = [
+    "resolve",
+    "use_device",
+    "use_esp_device",
+    "use_lcpcomp_decode_device",
+    "use_lcpcomp_device",
+    "use_lzss_device",
+    "use_parse_device",
+    "use_sa_device",
+]
 
 
 def resolve(device) -> torch.device:
@@ -178,3 +191,45 @@ def use_esp_device(n: int, device: torch.device) -> bool:
     rounds on `device` (ops/esp_torch.esp_grammar_device)?
     TDC_DEVICE_ESP=1/0 forces it on (on whichever device was given) or off."""
     return _use_sized("TDC_DEVICE_ESP", n, ESP_MIN_N, device)
+
+
+# Smallest text whose plcppeaks factorization (ops/lcpcomp_torch.py) runs on
+# a CUDA device when TDC_DEVICE_LCPCOMP is unset. Measured by chip_smoke.py
+# (phase "lcpcomp stages", gate_sweep) in four sweeps (16 and 64 KiB in
+# three) on an NVIDIA H100 80GB HBM3 at 700.00 W, on prefixes of
+# synth_english (seed 7), best of 2-3: the card's side is
+# plcppeaks_factorize_device from the SA, ISA and PLCP that TextDS holds on
+# the card (below SA_MIN_N those are taken up first) with the factors back;
+# the host's is the C++ strategy with the ISA and PLCP brought down. Host
+# over card: 16 and 64 KiB 0.04-0.08 (SA on the host), 256 KiB 0.31-1.04, 1
+# MiB 0.34-1.03, 4 MiB 0.47-1.16, 16 MiB 1.16-1.63 (77 ms on the card, most
+# of it greedy_visited's 26 rounds, against 37-57 ms of C++ and 52-74 ms of
+# copies). The card wins in every sweep only at 16 MiB. (The JAX package
+# keeps this stage opt-in from a TPU's numbers.)
+LCPCOMP_MIN_N = 16 << 20
+
+# Smallest container text whose lcpcomp decode resolves its factor chains on
+# a CUDA device (ops/lcpcomp_torch.resolve_factors_device, whatever its dec)
+# when TDC_DEVICE_LCPCOMP is unset. Same sweeps and card; the card's side is
+# resolve_factors_device with every copy, the host's
+# tdc_lcpcomp_scan_decode (the default dec), milliseconds: 16 KiB 0.5-0.9
+# against 0.3-0.4, 64 KiB 0.6-1.0 against 1.6-2.5, 256 KiB 0.9-1.1 against
+# 9.4-12, 1 MiB 1.2-2.1 against 69-81, 4 MiB 3.5-4.8 against 625-693, 16
+# MiB 13.6-16.6 against 2624-3224: the card wins from 64 KiB on, by
+# 2.6-3.3x there and by 136-216x at 4-16 MiB. (The JAX package's opt-in and
+# its 4 MiB floor came from a TPU's gathers.)
+LCPCOMP_DEC_MIN_N = 64 << 10
+
+
+def use_lcpcomp_device(n: int, device: torch.device) -> bool:
+    """Should lcpcomp(comp=plcppeaks) factorize a text of n bytes on `device`
+    (ops/lcpcomp_torch.plcppeaks_factorize_device)? TDC_DEVICE_LCPCOMP=1/0
+    forces it on (on whichever device was given) or off."""
+    return _use_sized("TDC_DEVICE_LCPCOMP", n, LCPCOMP_MIN_N, device)
+
+
+def use_lcpcomp_decode_device(n: int, device: torch.device) -> bool:
+    """Should an lcpcomp container of n bytes resolve its factors on `device`
+    (ops/lcpcomp_torch.resolve_factors_device), whatever its `dec`?
+    TDC_DEVICE_LCPCOMP as above."""
+    return _use_sized("TDC_DEVICE_LCPCOMP", n, LCPCOMP_DEC_MIN_N, device)

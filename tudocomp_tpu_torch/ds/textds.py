@@ -69,10 +69,10 @@ class TextDS:
         self._phi: Optional[np.ndarray] = None
         self._plcp: Optional[np.ndarray] = None
         self._lcp: Optional[np.ndarray] = None
-        self._isa_device = None  # the device SA's ranks: the ISA, for free
-        # the text and the SA on the device, left there by a device SA for
-        # the PLCP and the LCP to be computed where they lie
-        self._text_d = self._sa_d = self._plcp_d = None
+        # the text, the SA and its ranks (the ISA, for free) on the device,
+        # left there by a device SA for the PLCP and the LCP to be computed
+        # where they lie, for require_isa and for device_arrays
+        self._text_d = self._sa_d = self._isa_d = self._plcp_d = None
 
     def __len__(self) -> int:
         return len(self.text)
@@ -139,10 +139,8 @@ class TextDS:
 
                     self._text_d = torch.from_numpy(self.text).to(self.device)
                     sa_d, isa_d = suffix_array_device(self._text_d, return_isa=True)
-                    self._sa_d = sa_d
+                    self._sa_d, self._isa_d = sa_d, isa_d
                     self._sa = sa_d.cpu().numpy()
-                    if self._isa is None:
-                        self._isa_device = isa_d  # fetched on require_isa
                 elif lib is not None and hasattr(lib, "tdc_sais") and n:
                     sa = np.empty(n, dtype=np.int32)
                     rc = lib.tdc_sais(self.text, n, sa)
@@ -166,10 +164,9 @@ class TextDS:
                     s = SparseISA(self.require_sa(), t=max(1, self.sparse_isa_t))
                     ph.log("provider", "sparse_isa")
                     self._isa = s.to_array_via_queries().astype(np.int32)
-                elif self._isa_device is not None:
+                elif self._isa_d is not None:
                     # the staged device SA's head-rank array IS the ISA
-                    self._isa = self._isa_device.cpu().numpy()
-                    self._isa_device = None
+                    self._isa = self._isa_d.cpu().numpy()
                     ph.log("provider", "device_sa_ranks")
                 else:
                     self._isa = inverse_permutation(self.require_sa())
@@ -189,6 +186,16 @@ class TextDS:
 
             self._plcp_d = plcp_device(self._text_d, self._sa_d)
         return self._plcp_d
+
+    def device_arrays(self):
+        """(SA, ISA, PLCP) as int32 tensors on the device, where the device
+        built the SA and the ISA is its ranks (isa_provider "from_sa"): the
+        PLCP comes from kernel H, and nothing but the SA (require_sa's) goes
+        to the host. None where the host built the SA."""
+        self.require_sa()
+        if self._sa_d is None or self.isa_provider != "from_sa":
+            return None
+        return self._sa_d, self._isa_d, self._plcp_device()
 
     def require_plcp(self) -> np.ndarray:
         if self._plcp is None:

@@ -7,9 +7,10 @@ the segmented token interleave, and the suffix stack of lzss_lcp (SA-IS,
 PLCP, the permutation helpers, the SparseISA build, the LZSS factorizer and
 the lzss stream parse and factor copy), the ESP round, the SLP's expansion,
 the canonical index decode and the longest increasing subsequence of the
-esp coders, and the arithmetic coder's loops. The library is built with g++ at first
-use into `build/tudocomp_tpu_torch/` at the repository root (git-ignored),
-named by a hash of the source, so a change rebuilds. Every caller keeps a
+esp coders, the arithmetic coder's loops, and lcpcomp's six factorization
+strategies, factor flatten and four decoders: 35 entry points. The library
+is built with g++ at first use into `build/tudocomp_tpu_torch/` at the
+repository root (git-ignored), named by a hash of the source, so a change rebuilds. Every caller keeps a
 pure-Python fallback, so the host path runs, slower, where no compiler is
 found: this is host code, not a device fallback.
 """
@@ -101,7 +102,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tdc_arith_encode": (i64, [u8p, i64, u32p, ctypes.c_uint64, u64p]),
         "tdc_arith_decode": (i64, [u64p, i64, u8p, u32p, i32, ctypes.c_uint64, i64, u8p]),
         "tdc_lis_indices": (i64, [i64p, i64, i64p]),
+        "tdc_lcpcomp_flatten": (None, [u32p, u32p, u32p, i64]),
+        "tdc_lcpcomp_scan_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64, i64]),
+        "tdc_lcpcomp_compact_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64]),
+        "tdc_lcpcomp_queuelist_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64]),
+        "tdc_lcpcomp_multimap_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64, i64]),
     }
+    for strategy in ("arrays", "heap", "bheap", "plcp", "maxlcp", "plcppeaks"):
+        # (sa, isa, lcp or plcp, n, threshold, fpos, fsrc, flen) -> factors
+        signatures[f"tdc_lcpcomp_{strategy}_factorize"] = (i64, [i32p, i32p, i32p, i64, i64, u32p, u32p, u32p])
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
         fn.restype = restype

@@ -4,12 +4,13 @@
 of include/tudocomp/Registry.hpp:11-238), trimmed to registration, lookup
 and selection: it maps (type, name) to algorithm classes and selects and
 instantiates them from id strings. `TorchRegistry` holds the algorithms of
-the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `esp`, `encode`,
-the Huffman, arithmetic and universal coders `huff`, `arithmetic`, `ascii`,
-`bit`, `gamma`, `delta`, `ternary`, `vbyte`, the `lz78trie` axis and the
-hash axes of its hash tries, the `textds` axis and its providers, and esp's
-`slp_coder`, `d_coding`, `subseq` and `ipd` axes) and is bound to the one
-torch.device its device stages run on.
+the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `esp`,
+`lcpcomp`, `encode`, the Huffman, arithmetic, sle and universal coders
+`huff`, `arithmetic`, `sle`, `ascii`, `bit`, `gamma`, `delta`, `ternary`,
+`vbyte`, the `lz78trie` axis and the hash axes of its hash tries, the
+`textds` axis and its providers, esp's `slp_coder`, `d_coding`, `subseq`
+and `ipd` axes, and lcpcomp's `lcpcomp_comp` and `lcpcomp_dec` axes) and
+is bound to the one torch.device its device stages run on.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from .coders.arithmetic import ArithmeticCoder
 from .coders.huffman import HuffmanCoder
+from .coders.sle import SLECoder
 from .coders.universal import (
     ASCIICoder,
     BitCoder,
@@ -32,6 +34,7 @@ from .compressors import esp_dcoding as dc
 from .compressors import hash_axes, lz78_tries
 from .compressors.blockwise import BlockwiseCompressor
 from .compressors.esp import IPDS, EspCompressor, PlainSLPCoder, SortedSLPCoder
+from .compressors.lcpcomp import COMP_STRATEGIES, DEC_STRATEGIES, LCPCompressor
 from .compressors.lz78 import LZ78Compressor
 from .compressors.lzss_lcp import LZSSLCPCompressor
 from .compressors.lzw import LZWCompressor
@@ -113,6 +116,10 @@ class TorchRegistry(Registry):
             dc.SubSeqOptimal,
             dc.SubSeqGreedy,
             *IPDS,
+            LCPCompressor,
+            *COMP_STRATEGIES,
+            *DEC_STRATEGIES,
+            SLECoder,
         ):
             self.register(cls)
         lz78_tries.register(self)
