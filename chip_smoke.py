@@ -4,14 +4,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT   # kernels A-H and P7 of PARENT's checkout and this one, in turns
     python3 chip_smoke.py --dh ROOT        # kernels A-H and P7 of ROOT's checkout, one JSON line
+    python3 chip_smoke.py --j              # kernel J's device ms on phase 16's English text, one JSON line
 
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
 device="cpu") and decompress(container, device="cpu") with
 TDC_DEVICE_HUFF=0, TDC_DEVICE_LZ78=0, TDC_DEVICE_SA=0, TDC_DEVICE_LZSS=0,
-TDC_DEVICE_ESP=0 and TDC_DEVICE_LCPCOMP=0, which run the port's copies of
-the host coders, parses, suffix stack, ESP rounds and lcpcomp stages
-(the CPU tests hold those byte-equal to the JAX package). Phases, one JSON
+TDC_DEVICE_ESP=0, TDC_DEVICE_LCPCOMP=0, TDC_DEVICE_RLE=0 and
+TDC_DEVICE_MTF=0, which run the port's copies of the host coders, parses,
+suffix stack, ESP rounds, lcpcomp stages and transforms (the CPU tests
+hold those byte-equal to the JAX package). Phases, one JSON
 line each:
   1. build          compile the CUDA kernels from tudocomp_tpu_torch/csrc,
                     one nvcc per source, in parallel, and the C++ host
@@ -161,6 +163,31 @@ line each:
                     resolve_factors_device (copies included) against
                     tdc_lcpcomp_scan_decode, on prefixes of 16 KiB to 16
                     MiB, best of 2-3.
+ 16. transforms kernel  kernel J (the MTF encode, csrc/mtf.cu) against its
+                    plain version and the host's tdc_mtf_encode, exactly, on
+                    16 MiB of the English stand-in, of the DNA text and of
+                    uniform random bytes, on the RLE output of the English
+                    text (what rle:mtf feeds it) and on tests/torch_cases.py's
+                    edge inputs (mtf_edge_cases); its wrapper ms on each 16
+                    MiB input, plain ms and device ms by kernel (J1-J3,
+                    torch.profiler in a fresh process, `--j`: late in this
+                    run the profiler keeps no events) on the English one,
+                    its bound, and its ms at chunks of 1-8 KiB;
+ 17. transforms roundtrip  rle:mtf:encode(vbyte) (BASELINE config 1) on 1
+                    MiB (ratio BENCH_r05's 103.24%) and 16 MiB of the English
+                    text, bwt:rle:mtf:encode(huff) on the 16 MiB English and
+                    DNA texts, and each of the 16 matrix ids of the slice
+                    (noop, rle, mtf, bwt, lzss, repair, the chain) on 1 MiB
+                    of English (repair on REPAIR_BYTES), through
+                    driver.compress / decompress(device="cuda"): each
+                    container equals the host path's, both decoders return
+                    the input, kernel J launched wherever its gate takes the
+                    MTF stage's input to the card; then the StatPhase spans
+                    of one warm 16 MiB English encode and decode of each
+                    chain, card against host, and the sweep behind
+                    device.RLE_MIN_N and MTF_MIN_N: each device stage with
+                    its copies against its host stage, on prefixes of 16
+                    KiB to 16 MiB of the English text, best of 2-3.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
 its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
@@ -226,6 +253,22 @@ LCPCOMP_ALGOS = ("lcpcomp(coder=huff)", "lcpcomp(coder=huff,comp=plcppeaks)")
 LCPCOMP_SMALL = ("lcpcomp(coder=sle)", "encode(coder=sle)", "lcpcomp(coder=huff,textds=textds(isa=sparse_isa))",
                  "lcpcomp(coder=huff,comp=plcppeaks,textds=textds(lcp=compressed_lcp))")  # at 1 MiB
 LCPCOMP_SWEEP = (16 << 10, 64 << 10, 256 << 10, MIB, 4 * MIB, 16 * MIB)  # behind LCPCOMP_MIN_N, _DEC_MIN_N
+TRANSFORM_BYTES = 16 * MIB  # bench.py's 16 MiB shapes, for the transform chains
+TRANSFORM_ALGOS = ("rle:mtf:encode(vbyte)", "bwt:rle:mtf:encode(huff)")
+RLE_MTF_RATIO_1MIB = 103.24  # BENCH_r05's rle_mtf_vbyte_1MB_english ratio_pct (bench.py:322-324)
+TRANSFORM_IDS = ("noop", "rle", "mtf", "bwt", "bwt(textds=textds(isa=sparse_isa))",
+                 "bwt(textds=textds(lcp=compressed_lcp))", "chain(bwt, chain(rle, chain(mtf, encode(huff))))",
+                 *(f"lzss(coder={c})" for c in ("ascii", "bit", "gamma", "delta")),
+                 *(f"repair(coder={c})" for c in ("ascii", "bit", "gamma", "delta", "huff")))
+# repair's build is quadratic in practice: 108.6 s at 1 MiB of the English
+# text, 4.7 s at 256 KiB, on the port's host path (one CPU run, not on the
+# card's host), so phase 17 runs its ids on a prefix
+REPAIR_BYTES = 128 << 10
+# the stages before mtf in an id: the input kernel J sees is their output
+MTF_FEED = {"mtf": None, "rle:mtf:encode(vbyte)": "rle", "bwt:rle:mtf:encode(huff)": "bwt:rle",
+            "chain(bwt, chain(rle, chain(mtf, encode(huff))))": "bwt:rle"}
+TRANSFORM_SWEEP = (16 << 10, 64 << 10, 256 << 10, MIB, 4 * MIB, 16 * MIB)  # behind RLE_MIN_N, MTF_MIN_N
+MTF_CHUNKS = (1024, 2048, 4096, 8192)  # kernel J's chunk sizes timed in phase 16
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
 LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
 LZW_PLAIN_PREFIX = 1 << 16  # bytes of those blocks the plain version steps through
@@ -288,6 +331,11 @@ KERNEL_INFO = {
         "tudocomp_tpu/ops/esp_jax.py:87 (_sim_window under _adjust_dev; plain JAX there, no Pallas kernel: "
         "a kernel the port added)",
     ),
+    "mtf_encode": (
+        "tudocomp_tpu_torch/csrc/mtf.cu",
+        "tudocomp_tpu/ops/transforms.py:23 (mtf_encode_device; plain JAX there, no Pallas kernel: "
+        "a kernel the port added)",
+    ),
     **{
         name: ("tudocomp_tpu_torch/csrc/probes.cu", replaces)
         for name, replaces in {
@@ -319,6 +367,7 @@ DEVICE_FNS = {
     "lzw_parse": ("lzw_kernel",),
     "plcp_segments": ("phi_kernel", "plcp_upper_kernel", "plcp_level_kernel"),
     "esp_adjust_windows": ("esp_adjust_kernel",),
+    "mtf_encode": ("mtf_last_kernel", "mtf_entry_kernel", "mtf_walk_kernel"),
     "probe3_gather": ("gather_kernel",),
     "probe6_roll_lane": ("p6_roll_lane_kernel",),
     "probe6_roll_sublane": ("p6_roll_sublane_kernel",),
@@ -403,7 +452,7 @@ def english_bytes(n: int):
 
 
 GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_ESP",
-         "TDC_DEVICE_LCPCOMP")
+         "TDC_DEVICE_LCPCOMP", "TDC_DEVICE_RLE", "TDC_DEVICE_MTF")
 
 
 def dna_bytes(n: int):
@@ -501,6 +550,8 @@ def kernel_ops(name: str, args) -> int:
         return 8 * args[0].numel()
     if name == "esp_adjust_windows":  # per span block: ~3 queue steps of ~10 compares and moves
         return 30 * span_blocks(args)
+    if name == "mtf_encode":  # per byte: the search for its rank, the shift, the last-position update
+        return 8 * args[0].numel()
     if name == "probe3_gather":  # per index: a bounds check and a load
         return 3 * args[1].numel()
     if name == "probe7_pack":  # per token, as kernel A, plus the segmented scan
@@ -1294,6 +1345,12 @@ def main() -> int:
     launches["plcp_segments"] += launches_lcp
     timing["plcp_segments"]["launches_by_shape"]["lcpcomp 16 MiB"] = launches_lcp
     lcpcomp_stages_phase(english, dev, gpu)
+    torch.cuda.empty_cache()
+
+    # 16-17. the transforms: kernel J, the ids through the driver, the stages and the gates
+    for table, new in zip((errs, timing), transforms_kernel_phase(english, dev, gpu)):
+        table.update(new)
+    launches["mtf_encode"] = transforms_roundtrip_phase(english, dev, gpu)
 
     print(gpu)
     emit({"kernels": [
@@ -2687,7 +2744,210 @@ def lcpcomp_sweep(english, dev) -> dict:
     return sweep
 
 
+def transforms_kernel_phase(english, dev, gpu):
+    """Phase 16: kernel J against mtf_encode_plain and the host's
+    tdc_mtf_encode, exactly, on the 16 MiB inputs and the edge inputs; its
+    times. Returns (errs, timing) for the kernels line: the English text,
+    the main path's largest launch."""
+    import numpy as np
+    import torch
+
+    from tests import torch_cases
+    from tudocomp_tpu_torch import native
+    from tudocomp_tpu_torch.compressors.simple import rle_encode
+    from tudocomp_tpu_torch.ops.mtf_cuda import mtf_encode_chunks
+    from tudocomp_tpu_torch.ops.transforms_torch import CHUNK, mtf_encode_plain, upload
+
+    name = "mtf_encode"
+    lib = native.get_lib()
+    text = english[:TRANSFORM_BYTES]
+    with host_path():
+        rle_text = rle_encode(text)
+    inputs = {"synth_english": text, "dna": dna_bytes(TRANSFORM_BYTES), "rle of synth_english": rle_text,
+              "uniform": np.random.default_rng(7).integers(0, 256, TRANSFORM_BYTES).astype(np.uint8)}
+    inputs.update({f"edge: {k}": np.frombuffer(v, np.uint8) for k, v in torch_cases.mtf_edge_cases().items()})
+    report, err, line = {}, 0, None
+    for which, arr in inputs.items():
+        arr = np.ascontiguousarray(arr)
+        x = upload(arr, dev)
+        got = mtf_encode_chunks(x)
+        host = np.empty(len(arr), np.uint8)
+        t0 = time.perf_counter()
+        if len(arr):
+            lib.tdc_mtf_encode(arr, len(arr), host)
+        host_s = time.perf_counter() - t0
+        plain, plain_ms = cuda_once(lambda: mtf_encode_plain(x))
+        e = max(max_abs_err(got, plain), max_abs_err(got.cpu(), torch.from_numpy(host)))
+        err = max(err, e)
+        entry = {"bytes": len(arr), "max_abs_err": e, "host_tdc_mtf_encode_s": host_s}
+        if not which.startswith("edge"):
+            entry.update({"ms": cuda_ms(lambda: mtf_encode_chunks(x)), "plain_ms": plain_ms,
+                          "mean_rank": float(got.to(torch.float64).mean())})
+        if which == "synth_english":
+            line = {"ms": entry["ms"], **device_time(lambda: mtf_encode_chunks(x), name), "plain_ms": plain_ms,
+                    **bound(name, (x,), got), "scratch_bytes": -(-len(arr) // CHUNK) * 256 * 4,
+                    "shape": f"{len(arr)} bytes of synth_english in chunks of {CHUNK}"}
+            chunks = {}
+            for chunk in MTF_CHUNKS:
+                other = mtf_encode_chunks(x, chunk)
+                if not torch.equal(other, got):
+                    raise AssertionError(f"kernel J at chunks of {chunk} differs from chunks of {CHUNK}")
+                chunks[chunk] = cuda_ms(lambda: mtf_encode_chunks(x, chunk))
+            line["ms_by_chunk"] = chunks
+            line.update(fresh_j_device_time())
+        report[which] = entry
+        del x, got, plain
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"kernel J differs from its plain version or the host: {report}")
+    no_jax()
+    emit({"phase": "transforms kernel", "max_abs_err": err, "tolerance": 0, "inputs": report,
+          "kernel_J": line, "card": gpu})
+    return {name: err}, {name: line}
+
+
+def fresh_j_device_time() -> dict:
+    """Kernel J's device ms (device_time) from `--j`, a process of its own."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--j"], capture_output=True, text=True,
+                       cwd=ROOT, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"chip_smoke.py --j failed ({r.returncode}):\n{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def j_main() -> int:
+    """--j: device_time of kernel J on phase 16's 16 MiB English text, in a
+    fresh process: one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from tudocomp_tpu_torch.ops.mtf_cuda import mtf_encode_chunks
+    from tudocomp_tpu_torch.ops.transforms_torch import upload
+
+    x = upload(english_bytes(TRANSFORM_BYTES), torch.device("cuda", 0))
+    emit(device_time(lambda: mtf_encode_chunks(x), "mtf_encode"))
+    no_jax()
+    return 0
+
+
+def _mtf_input_bytes(algo: str, data: bytes) -> int:
+    """Bytes that reach the MTF stage of `algo` (0: it has none)."""
+    if algo not in MTF_FEED:
+        return 0
+    feed = MTF_FEED[algo]
+    if feed is None:
+        return len(data)
+    from tudocomp_tpu_torch.driver import compress
+
+    return len(compress(feed, data, device="cuda", raw=True))  # the host path's bytes, held so below
+
+
+def transforms_roundtrip_phase(english, dev, gpu) -> int:
+    """Phase 17: the transform chains and the slice's matrix ids through the
+    driver on the card against the port's host path; kernel J launched
+    wherever its gate opens; the chains' StatPhase spans, card against
+    host; the sweep behind RLE_MIN_N and MTF_MIN_N. Returns kernel J's
+    launches in the gated encodes."""
+    import numpy as np
+    import torch
+
+    from tudocomp_tpu_torch import device as tdev
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.compressors.simple import mtf_encode, rle_runs
+    from tudocomp_tpu_torch.driver import compress, decompress
+
+    small = english_bytes(MIB).tobytes()
+    big = {"synth_english": english[:TRANSFORM_BYTES].tobytes(), "dna": dna_bytes(TRANSFORM_BYTES).tobytes()}
+    runs = [("rle:mtf:encode(vbyte)", "synth_english", small), ("rle:mtf:encode(vbyte)", "synth_english",
+                                                                 big["synth_english"]),
+            *(("bwt:rle:mtf:encode(huff)", which, data) for which, data in big.items()),
+            *((algo, "synth_english", small[:REPAIR_BYTES] if algo.startswith("repair") else small)
+              for algo in TRANSFORM_IDS)]
+    launched_all = 0
+    for algo, which, data in runs:
+        n = len(data)
+        feed = _mtf_input_bytes(algo, data)
+        on_card = feed > 0 and tdev.use_mtf_device(feed, dev)
+        kernels.reset_counts()
+        container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+        launched = kernels.counts()["mtf_encode"]
+        if on_card and launched == 0:
+            raise AssertionError(f"{algo} on {n} bytes of {which}: kernel J never launched")
+        launched_all += launched
+        back, dec_s = synced(lambda: decompress(container, device="cuda"))
+        if back != data:
+            raise AssertionError(f"{algo} on {n} bytes of {which}: the card's decode differs from the input")
+        t0 = time.perf_counter()
+        ref = ref_compress(algo, data)
+        t1 = time.perf_counter()
+        if container != ref:
+            raise AssertionError(f"{algo} on {n} bytes of {which}: container differs from the host path's")
+        if ref_decompress(container) != data:
+            raise AssertionError(f"{algo} on {n} bytes of {which}: the host decode differs from the input")
+        t2 = time.perf_counter()
+        ratio = round(100.0 * len(container) / n, 2) if n else None
+        if algo == "rle:mtf:encode(vbyte)" and n == MIB and ratio != RLE_MTF_RATIO_1MIB:
+            raise AssertionError(f"{algo} at 1 MiB: ratio {ratio}% against BENCH_r05's {RLE_MTF_RATIO_1MIB}%")
+        no_jax()
+        emit({"phase": "transforms roundtrip", "algo": algo, "input": which, "bytes": n,
+              "container_bytes": len(container), "ratio_pct": ratio, "mtf_input_bytes": feed,
+              "mtf_on_card": on_card, "kernel_J_launches": launched, "encode_s": enc_s, "decode_s": dec_s,
+              "host_reference_encode_s": t1 - t0, "host_reference_decode_s": t2 - t1, "card": gpu})
+        del container, back, ref
+
+    stages = {}
+    data = big["synth_english"]
+    for algo in TRANSFORM_ALGOS:
+        compress(algo, data, device="cuda")  # warm
+        card_enc, container = phase_spans(lambda: compress(algo, data, device="cuda"))
+        torch.cuda.synchronize()
+        card_dec, back = phase_spans(lambda: decompress(container, device="cuda"))
+        with host_path():
+            host_enc, host_container = phase_spans(lambda: compress(algo, data, device="cpu"))
+            host_dec, host_back = phase_spans(lambda: decompress(container, device="cpu"))
+        if container != host_container or back != data or host_back != data:
+            raise AssertionError(f"{algo}: the staged runs differ from the host path or the input")
+        stages[algo] = {"card": {"encode": card_enc, "decode": card_dec},
+                        "host": {"encode": host_enc, "decode": host_dec}}
+        del container, host_container, back, host_back
+
+    # the sweep behind RLE_MIN_N and MTF_MIN_N: each stage as its compressor
+    # runs it, host bytes in and out, the gate forced each way
+    sweep = {}
+    text = english[:TRANSFORM_BYTES]
+    for n in TRANSFORM_SWEEP:
+        arr = np.ascontiguousarray(text[:n])
+        reps = 3 if n <= 4 * MIB else 2
+        row = {}
+        for var, stage in (("TDC_DEVICE_RLE", lambda: rle_runs(arr, dev)), ("TDC_DEVICE_MTF", lambda: mtf_encode(arr, dev))):
+            out = {}
+            for side, gate in (("device", "1"), ("host", "0"), ("device 2", "1")):
+                os.environ[var] = gate
+                try:
+                    out[side] = best_of(stage, reps)
+                finally:
+                    del os.environ[var]
+            got, want = out["device"][0], out["host"][0]
+            same = all(np.array_equal(g, w) for g, w in zip(got, want)) if isinstance(got, tuple) else np.array_equal(got, want)
+            if not same:
+                raise AssertionError(f"{var} at {n} bytes: the device stage differs from the host's")
+            dev_s = min(out["device"][1], out["device 2"][1])
+            row[var] = {"device_s": dev_s, "host_s": out["host"][1], "host_over_device": out["host"][1] / dev_s}
+        sweep[n] = row
+    no_jax()
+    emit({"phase": "transforms stages", "bytes": TRANSFORM_BYTES, "stages": stages,
+          "gate_sweep_best_of_2_3": sweep,
+          "gates": {"RLE_MIN_N": tdev.RLE_MIN_N, "MTF_MIN_N": tdev.MTF_MIN_N},
+          "kernel_J_launches": launched_all, "card": gpu})
+    return launched_all
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--j"]:
+        sys.exit(j_main())
     if len(sys.argv) == 3 and sys.argv[1] in ("--dh", "--turns"):
         sys.exit((dh_main if sys.argv[1] == "--dh" else turns_main)(sys.argv[2]))
     if len(sys.argv) > 1:

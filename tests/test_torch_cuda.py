@@ -706,3 +706,74 @@ def test_lcpcomp_plcppeaks_roundtrip_on_the_card(dev, monkeypatch):
         monkeypatch.setenv(var, "0")
     assert c == compress(algo, data, device="cpu")
     assert decompress(c, device="cpu") == data
+
+
+MTF_CASES = [*sorted(tc.mtf_edge_cases()), "random 256", "english 1 MiB"]
+
+
+def _mtf_input(case: str) -> bytes:
+    if case == "random 256":
+        return bytes(np.random.default_rng(21).integers(0, 256, 300_001).astype(np.uint8))
+    if case == "english 1 MiB":
+        return tc.english(1 << 20, seed=4)
+    return tc.mtf_edge_cases()[case]
+
+
+def _host_mtf(data: bytes) -> np.ndarray:
+    from tudocomp_tpu_torch import native
+
+    arr = np.ascontiguousarray(np.frombuffer(data, np.uint8))
+    out = np.empty(len(arr), np.uint8)
+    if len(arr):
+        native.get_lib().tdc_mtf_encode(arr, len(arr), out)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [128, 4096, 8192])
+@pytest.mark.parametrize("case", MTF_CASES)
+def test_mtf_kernel_cases(dev, case, chunk):
+    """Kernel J against its plain version and the host's table walk, at
+    three chunk sizes; one launch a call (none for an empty input)."""
+    from tudocomp_tpu_torch.ops.mtf_cuda import mtf_encode_chunks
+    from tudocomp_tpu_torch.ops.transforms_torch import mtf_encode_plain
+
+    data = _mtf_input(case)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    kernels.reset_counts()
+    got = mtf_encode_chunks(x, chunk)
+    assert kernels.counts()["mtf_encode"] == (1 if data else 0)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), _host_mtf(data))
+    np.testing.assert_array_equal(got.cpu().numpy(), mtf_encode_plain(x, chunk).cpu().numpy())
+
+
+def test_bwt_gather_on_the_card(dev, monkeypatch):
+    """TextDS.bwt gathers on the card where the card built the SA and gives
+    the host's BWT."""
+    from tudocomp_tpu_torch.ds.textds import TextDS
+
+    text = np.frombuffer(tc.english(1 << 18, seed=5) + b"\0", np.uint8)
+    monkeypatch.setenv("TDC_DEVICE_SA", "1")
+    ds = TextDS(text, device=dev)
+    got = ds.bwt()
+    assert ds._sa_d is not None and ds._sa_d.is_cuda
+    monkeypatch.setenv("TDC_DEVICE_SA", "0")
+    np.testing.assert_array_equal(got, TextDS(text).bwt())
+
+
+@pytest.mark.parametrize("algo", ["rle:mtf:encode(vbyte)", "bwt:rle:mtf:encode(huff)"])
+def test_transforms_roundtrip_on_the_card(dev, algo, monkeypatch):
+    """1 MiB through the transform chains with the device stages forced: J
+    launched, the container equal to the host path's, both decodes the
+    input."""
+    data = tc.english(1 << 20, seed=6)
+    for var in ("TDC_DEVICE_RLE", "TDC_DEVICE_MTF", "TDC_DEVICE_SA"):
+        monkeypatch.setenv(var, "1")
+    kernels.reset_counts()
+    c = compress(algo, data, device="cuda")
+    assert kernels.counts()["mtf_encode"] == 1
+    assert decompress(c, device="cuda") == data
+    for var in ("TDC_DEVICE_RLE", "TDC_DEVICE_MTF", "TDC_DEVICE_SA"):
+        monkeypatch.setenv(var, "0")
+    assert c == compress(algo, data, device="cpu")
+    assert decompress(c, device="cpu") == data

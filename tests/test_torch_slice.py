@@ -177,6 +177,15 @@ _JAX_FREE = textwrap.dedent(
         os.environ["TDC_DEVICE_ESP"] = "1"  # the device rounds, forced (kernel I's plain version)
         assert [compress(algo, esp_data, device="cpu") for algo in esp_ids] == host
         assert all(decompress(c, device="cpu") == esp_data for c in host)
+        # the transforms, bwt, lzss and repair: the device stages' plain
+        # versions (the run split, kernel J's, the device SA), then the host
+        for gate in ("1", "0"):
+            for var in ("TDC_DEVICE_RLE", "TDC_DEVICE_MTF", "TDC_DEVICE_SA"):
+                os.environ[var] = gate
+            for algo in ("rle:mtf:encode(vbyte)", "bwt:rle:mtf:encode(huff)", "noop", "lzss(coder=bit)",
+                         "repair(coder=huff)"):
+                c = compress(algo, data, device="cpu")
+                assert decompress(c, device="cpu") == data, (algo, gate)
         from tudocomp_tpu_torch import probes
         assert probes.main(["6", "7", "8", "--device", "cpu"]) == 0
         print(len(ids), "ids")
@@ -293,7 +302,9 @@ def test_port_imports_nothing_of_the_jax_package():
     for dirpath, _, files in os.walk(os.path.join(ROOT, "tudocomp_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 45
-    assert any(p.endswith("probes.py") for p in paths)
+    for module in ("probes.py", "ops/transforms_torch.py", "ops/mtf_cuda.py", "compressors/chain.py",
+                   "compressors/bwt.py", "compressors/lzss.py", "compressors/repair.py"):
+        assert any(p.endswith(os.path.join("tudocomp_tpu_torch", module)) for p in paths), module
     bad = [
         (os.path.relpath(p, ROOT), m)
         for p in paths

@@ -6,6 +6,7 @@ Kernels C and G: histogram rows at the edges of the Moffat chain.
 Kernel D: one Huffman stream per case, as the tables and words
 parse_payload_tables gives (or made by hand where a payload cannot say it),
 with the bytes it must decode to. Kernel H: sentinel-terminated texts.
+Kernel J: inputs at the edges of its chunks.
 """
 
 import numpy as np
@@ -401,3 +402,20 @@ def esp_edge_spans(device="cpu") -> dict:
             ws[k], we[k] = a, b
         out[name] = tuple(torch.from_numpy(x).to(device) for x in (lens, typs, ws, we, np.array([len(spans)], np.int32)))
     return out
+
+
+def mtf_edge_cases(chunk: int = 4096) -> dict:
+    """Kernel J's edge inputs, name -> bytes (tests/test_torch_transforms.py,
+    tests/test_torch_cuda.py, chip_smoke.py phase 16): empty, one byte, less
+    than a chunk, a length that is no multiple of the chunk, one repeated
+    byte, and a cycle of all 256 values (every rank 255 after the first
+    lap)."""
+    rng = np.random.default_rng(13)
+    return {
+        "empty": b"",
+        "one byte": b"\xff",
+        "less than a chunk": english(chunk - 1),
+        "ragged chunks": bytes(rng.integers(0, 26, 3 * chunk + 77).astype(np.uint8) + 97),
+        "one repeated byte": b"z" * (2 * chunk + 5),
+        "cycle of 256": bytes(range(256)) * (chunk // 64 + 3),
+    }

@@ -20,7 +20,11 @@
 //   - lcpcomp: the six factorization strategies (arrays, heap, bheap,
 //     plcp, max_lcp, plcppeaks; the heap strategies share SlottedMaxHeap),
 //     the factor flatten, and the four decoders (scan, compact, queue
-//     list, multimap).
+//     list, multimap);
+//   - the transforms: the RLE decode, the MTF encode and decode, and the
+//     BWT's LF walk;
+//   - the sliding-window lzss parse and Re-Pair's grammar build and
+//     expansion.
 // Every entry point returns what the JAX package's copy returns on the same
 // input, so the port's host path writes the same bytes. The JAX package's
 // other trie backends are left out: every trie gives the same factors, so
@@ -1956,6 +1960,215 @@ int32_t tdc_lcpcomp_multimap_decode(uint8_t* buffer, int64_t n,
     for (int64_t i = 0; i < n; ++i)
         if (!decoded[i] && i + 1 != n) return -1;
     return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// RLE decode (RunLengthEncoder.hpp:37-50): a doubled character announces a
+// run header followed by a vbyte run length (+offset). Returns output
+// length, or -1 if cap exceeded.
+int64_t tdc_rle_decode(const uint8_t* in, int64_t n, int64_t offset,
+                       uint8_t* out, int64_t cap) {
+    int64_t pos = 0;
+    int64_t i = 0;
+    int last = -1;
+    while (i < n) {
+        uint8_t c = in[i++];
+        if (pos >= cap) return -1;
+        out[pos++] = c;
+        if ((int)c == last) {
+            // vbyte run length follows
+            uint64_t run = 0;
+            int shift = 0;
+            while (i < n) {
+                uint8_t b = in[i++];
+                run |= (uint64_t)(b & 0x7F) << shift;
+                shift += 7;
+                if (!(b & 0x80)) break;
+            }
+            int64_t r = (int64_t)run - offset;
+            if (pos + (r > 0 ? r : 0) > cap) return -1;
+            for (int64_t k = 0; k < r; ++k) out[pos++] = c;
+            last = -1;  // run consumed; next char starts fresh
+        } else {
+            last = c;
+        }
+    }
+    return pos;
+}
+
+// MTF decode: exact 256-entry table simulation
+// (compressors/MTFCompressor.hpp:36-43).
+void tdc_mtf_decode(const uint8_t* in, int64_t n, uint8_t* out) {
+    uint8_t table[256];
+    for (int i = 0; i < 256; ++i) table[i] = (uint8_t)i;
+    for (int64_t i = 0; i < n; ++i) {
+        uint8_t v = in[i];
+        uint8_t c = table[v];
+        std::memmove(table + 1, table, v);
+        table[0] = c;
+        out[i] = c;
+    }
+}
+
+// MTF encode: exact table simulation (MTFCompressor.hpp:17-29).
+void tdc_mtf_encode(const uint8_t* in, int64_t n, uint8_t* out) {
+    uint8_t table[256];
+    for (int i = 0; i < 256; ++i) table[i] = (uint8_t)i;
+    for (int64_t i = 0; i < n; ++i) {
+        uint8_t c = in[i];
+        int v = 0;
+        while (table[v] != c) ++v;
+        std::memmove(table + 1, table, v);
+        table[0] = c;
+        out[i] = (uint8_t)v;
+    }
+}
+
+// BWT LF-walk reconstruction (ds/bwt.hpp:84-95); out has length n-1.
+void tdc_bwt_walk(const uint8_t* bwt, const int64_t* lf, int64_t n,
+                  uint8_t* out) {
+    int64_t i = 0;
+    for (int64_t j = 1; j < n; ++j) {
+        out[n - 1 - j] = bwt[i];
+        i = lf[i];
+    }
+}
+
+// LZSS sliding-window factorization (exact semantics of
+// LZSSSlidingWindowCompressor::compress, LZSSSlidingWindowCompressor.hpp:
+// 39-120): brute-force longest match >= threshold in the last `window`
+// positions, leftmost match preferred, lookahead limited to the buffer end
+// (match length <= window). Emits per token: kind[t] = 1 for a factor with
+// (pos, delta=pos-src, len) or 0 for a literal (char in flen slot).
+// Returns token count.
+int64_t tdc_lzss_window_parse(const uint8_t* data, int64_t n, int64_t window,
+                              int64_t threshold, uint8_t* kind, uint32_t* fpos,
+                              uint32_t* fdelta, uint32_t* flen) {
+    int64_t nt = 0;
+    int64_t ahead = 0;
+    while (ahead < n) {
+        int64_t limit = ahead + window < n ? ahead + window : n;  // buffer end
+        int64_t fnum = 0, fsrc = 0;
+        int64_t k0 = ahead > window ? ahead - window : 0;
+        for (int64_t k = k0; k < ahead; ++k) {
+            int64_t j = 0;
+            while (ahead + j < limit && data[k + j] == data[ahead + j]) ++j;
+            if (j >= threshold && j > fnum) {
+                fnum = j;
+                fsrc = k;
+            }
+        }
+        if (fnum > 0) {
+            kind[nt] = 1;
+            fpos[nt] = (uint32_t)ahead;
+            fdelta[nt] = (uint32_t)(ahead - fsrc);
+            flen[nt] = (uint32_t)fnum;
+            ahead += fnum;
+        } else {
+            kind[nt] = 0;
+            fpos[nt] = (uint32_t)ahead;
+            fdelta[nt] = 0;
+            flen[nt] = data[ahead];
+            ahead += 1;
+        }
+        ++nt;
+    }
+    return nt;
+}
+
+// RePair grammar construction (exact mirror of RePairCompressor::compress,
+// compressors/RePairCompressor.hpp:96-177): rounds of count-most-frequent-
+// digram over a linked skip list, replace all its occurrences with a fresh
+// nonterminal. Tie-breaking matches the reference: the winning digram is
+// the first to *reach* the maximal count in scan order. text: in = bytes
+// widened to u32, out = final start-rule symbols compacted to the front
+// (*seq_len). Returns #rules.
+int64_t tdc_repair_build(uint32_t* text, int64_t n, int64_t max_rules,
+                         uint32_t* rules_l, uint32_t* rules_r,
+                         int64_t* seq_len) {
+    if (max_rules == 0) max_rules = INT64_MAX;
+    std::vector<int64_t> next((size_t)n);
+    for (int64_t i = 0; i < n; ++i) next[i] = i + 1;
+    int64_t num_rules = 0;
+    if (n > 0) {
+        while (num_rules < max_rules) {
+            // count digrams; the table is sized for the live sequence
+            std::vector<int64_t> cnt;
+            HashTrie map((size_t)std::min<int64_t>(n / 2 + 16, 1 << 21));
+            uint64_t max_di = 0;
+            int64_t max_count = 0;
+            int64_t i = 0;
+            while (i < n - 1) {
+                int64_t j = next[i];
+                if (j >= n) break;
+                uint64_t di = ((uint64_t)text[i] << 32) | text[j];
+                uint32_t slot = map.find_or_insert(di, (uint32_t)cnt.size());
+                int64_t c;
+                if (slot == UINT32_MAX) {
+                    cnt.push_back(1);
+                    c = 1;
+                } else {
+                    c = ++cnt[slot];
+                }
+                if (c > max_count) {
+                    max_count = c;
+                    max_di = di;
+                }
+                i = j;
+            }
+            if (max_count <= 1) break;
+            uint32_t new_sym = 256 + (uint32_t)num_rules;
+            rules_l[num_rules] = (uint32_t)(max_di >> 32);
+            rules_r[num_rules] = (uint32_t)max_di;
+            ++num_rules;
+            i = 0;
+            while (i < n - 1) {
+                int64_t j = next[i];
+                if (j >= n) break;
+                uint64_t di = ((uint64_t)text[i] << 32) | text[j];
+                if (di == max_di) {
+                    text[i] = new_sym;
+                    next[i] = next[j];
+                }
+                i = next[i];
+            }
+        }
+    }
+    // compact the start rule
+    int64_t m = 0;
+    for (int64_t i = 0; i < n; i = next[i]) text[m++] = text[i];
+    *seq_len = m;
+    return num_rules;
+}
+
+// RePair expansion (RePairCompressor.hpp:274-284, recursion made
+// iterative). Returns output length, -1 if cap exceeded, -2 for a rule
+// reference past the rules.
+int64_t tdc_repair_expand(const uint32_t* rules_l, const uint32_t* rules_r,
+                          int64_t nrules, const uint32_t* seq, int64_t seq_len,
+                          uint8_t* out, int64_t cap) {
+    std::vector<uint32_t> stack;
+    int64_t pos = 0;
+    for (int64_t s = 0; s < seq_len; ++s) {
+        stack.push_back(seq[s]);
+        while (!stack.empty()) {
+            uint32_t x = stack.back();
+            stack.pop_back();
+            if (x < 256) {
+                if (pos >= cap) return -1;
+                out[pos++] = (uint8_t)x;
+            } else {
+                uint32_t r = x - 256;
+                if ((int64_t)r >= nrules) return -2;
+                stack.push_back(rules_r[r]);  // right expanded after left
+                stack.push_back(rules_l[r]);
+            }
+        }
+    }
+    return pos;
 }
 
 }  // extern "C"

@@ -18,7 +18,8 @@ LZSS factorization of lzss_lcp, each with a size gate of its own
 (use_esp_device), and TDC_DEVICE_LCPCOMP for lcpcomp's two device stages,
 the plcppeaks factorization (use_lcpcomp_device) and the chain-resolving
 decode (use_lcpcomp_decode_device): one variable for both, each with a size
-gate of its own. (The JAX package keeps both lcpcomp stages opt-in, and its
+gate of its own; TDC_DEVICE_RLE for the RLE run split (use_rle_device) and
+TDC_DEVICE_MTF for the MTF encode, kernel J (use_mtf_device). (The JAX package keeps both lcpcomp stages opt-in, and its
 decode from 4 MiB, from a TPU's gather costs; neither carries over.) The PLCP and LCP arrays have no gate of
 their own: TextDS computes them on the device exactly when the device built
 the suffix array, which then lies there already.
@@ -37,7 +38,9 @@ __all__ = [
     "use_lcpcomp_decode_device",
     "use_lcpcomp_device",
     "use_lzss_device",
+    "use_mtf_device",
     "use_parse_device",
+    "use_rle_device",
     "use_sa_device",
 ]
 
@@ -233,3 +236,46 @@ def use_lcpcomp_decode_device(n: int, device: torch.device) -> bool:
     (ops/lcpcomp_torch.resolve_factors_device), whatever its `dec`?
     TDC_DEVICE_LCPCOMP as above."""
     return _use_sized("TDC_DEVICE_LCPCOMP", n, LCPCOMP_DEC_MIN_N, device)
+
+
+# Smallest input whose RLE run split (ops/transforms_torch.rle_runs_device)
+# runs on a CUDA device when TDC_DEVICE_RLE is unset. Measured by
+# chip_smoke.py (phase "transforms stages", gate_sweep) in two runs on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, on prefixes of synth_english (seed
+# 7), best of 2-3 a run:
+# compressors/simple.rle_runs with the gate forced each way, the card's side
+# the bytes up, the split, the run lengths back (4 bytes a run) and the
+# host's cumsum and gather, the host's
+# side numpy's shift-compare, flatnonzero and diff. Milliseconds, card
+# against host, over the runs: 16 KiB 0.37-0.50 against 0.09-0.10, 64 KiB
+# 0.77-0.87 against 0.28-0.37, 256 KiB 1.8-2.1 against 1.2-1.3, 1 MiB
+# 7.4-8.0 against 6.1-6.5, 4 MiB 33.9-34.6 against 27.9-29.9, 16 MiB
+# 156-199 against 195-243: the host wins up to 4 MiB (by 1.15-5x), the
+# card by 1.22-1.25x at 16 MiB. (The JAX package's 16 MiB came from a v5e.)
+RLE_MIN_N = 16 << 20
+
+# Smallest input whose MTF encode runs on a CUDA device (kernel J,
+# ops/mtf_cuda.py) when TDC_DEVICE_MTF is unset. Same sweep and card:
+# compressors/simple.mtf_encode with the gate forced each way, the card's
+# side the bytes up, kernel J and the ranks back, the host's the C++ table
+# walk (tdc_mtf_encode). Milliseconds, card against host, over the runs:
+# 16 KiB 0.65-0.66 against 0.36-0.48, 64 KiB 0.67-0.69 against 1.5-1.6,
+# 256 KiB 0.79-0.83 against 6.1-6.3, 1 MiB 1.0-1.1 against 26-32, 4 MiB
+# 1.5-1.6 against 89-97, 16 MiB 5.5-5.9 against 401-479: the card wins from
+# 64 KiB on, by 2.2-2.3x there and 73-81x at 16 MiB. (The JAX package's 4
+# MiB came from a v5e.)
+MTF_MIN_N = 64 << 10
+
+
+def use_rle_device(n: int, device: torch.device) -> bool:
+    """Should the RLE run split of an input of n bytes run on `device`
+    (ops/transforms_torch.rle_runs_device)? TDC_DEVICE_RLE=1/0 forces it on
+    (on whichever device was given) or off."""
+    return _use_sized("TDC_DEVICE_RLE", n, RLE_MIN_N, device)
+
+
+def use_mtf_device(n: int, device: torch.device) -> bool:
+    """Should the MTF encode of an input of n bytes run on `device`
+    (ops/transforms_torch.mtf_encode_device: kernel J on a card)?
+    TDC_DEVICE_MTF=1/0 forces it on (on whichever device was given) or off."""
+    return _use_sized("TDC_DEVICE_MTF", n, MTF_MIN_N, device)

@@ -8,7 +8,9 @@ in dependency order) with array providers:
   LCP   LCP[i] = PLCP[sa[i]]               (ds/LCPFromPLCP.hpp:38-49)
         (both on the device, ops/plcp_torch.py, where the device built the SA)
   ISA   inverse permutation                (ds/ISAFromSA.hpp:12-61)
-The CompressMode bit-packing axis of the reference collapses to numpy
+The BWT (ds/bwt.hpp) is a gather of the text at SA - 1: on the device where
+the device built the SA (TextDS.bwt), else on the host; its decode (the LF
+walk) stays on the host. The CompressMode bit-packing axis of the reference collapses to numpy
 dtypes (arrays are i32); requires a text whose last byte is the unique 0
 sentinel, as guaranteed by Meta.uses_textds input restrictions. The port's
 copy of tudocomp_tpu/ds/textds.py: the arrays it hands out are numpy arrays
@@ -242,6 +244,15 @@ class TextDS:
                 self._lcp = self._maybe_pack(self._lcp)
         return self._unpack(self._lcp)
 
+    def bwt(self) -> np.ndarray:
+        """The BWT of the text (bwt_from_sa): the gather runs on the device
+        where the device built the SA, and the n bytes come back; else on
+        the host."""
+        sa = self.require_sa()
+        if self._sa_d is not None:
+            return bwt_from_sa(self._text_d, self._sa_d)
+        return bwt_from_sa(self.text, sa)
+
     # accessors mirroring TextDS::sa()/isa()/... ------------------------------
 
     def sa(self) -> np.ndarray:
@@ -263,3 +274,50 @@ class TextDS:
     def lcp(self) -> np.ndarray:
         assert self._lcp is not None
         return self._unpack(self._lcp)
+
+
+def bwt_from_sa(text, sa) -> np.ndarray:
+    """bwt[i] = text[sa[i]-1] (text[n-1] when sa[i]==0), ds/bwt.hpp:20-23.
+
+    numpy arrays: on the host. Tensors (a uint8 text and an int32 SA on one
+    device): the gather runs there and the n bytes come back."""
+    if isinstance(sa, torch.Tensor):
+        idx = torch.remainder(sa - 1, text.numel())
+        return torch.index_select(text, 0, idx).cpu().numpy()
+    text = np.asarray(text, dtype=np.uint8)
+    return text[(sa.astype(np.int64) - 1) % len(text)]
+
+
+def bwt_lf(bwt: np.ndarray) -> np.ndarray:
+    """LF mapping: LF[i] = rank of (bwt[i], i) in (char, pos) order
+    (ds/bwt.hpp:29-66)."""
+    n = len(bwt)
+    order = np.argsort(bwt, kind="stable")
+    lf = np.empty(n, dtype=np.int64)
+    lf[order] = np.arange(n, dtype=np.int64)
+    return lf
+
+
+def decode_bwt(bwt: np.ndarray) -> np.ndarray:
+    """LF-walk reconstruction, dropping the sentinel (ds/bwt.hpp:77-98).
+
+    Returns the original text (length n-1) for a BWT of a 0-terminated text.
+    """
+    bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
+    n = len(bwt)
+    if n <= 1:
+        return np.zeros(0, dtype=np.uint8)
+    lf = bwt_lf(bwt)
+    from ..paranoid import check_permutation
+
+    check_permutation(lf, n, "LF")
+    lib = native.get_lib()
+    out = np.empty(n - 1, dtype=np.uint8)
+    if lib is not None:
+        lib.tdc_bwt_walk(bwt, lf, n, out)
+        return out
+    i = 0
+    for j in range(1, n):
+        out[n - 1 - j] = bwt[i]
+        i = lf[i]
+    return out

@@ -7,7 +7,39 @@ of tudocomp_tpu/io/vbyte.py.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass
+class VByteArrays:
+    """Flattened vbyte encodings of many integers."""
+
+    bytes: np.ndarray  # all vbyte bytes concatenated (uint8)
+    lengths: np.ndarray  # bytes per input value (int64)
+    intra_offsets: np.ndarray  # position of each byte within its own vbyte
+
+
+def vbyte_encode_array(values) -> VByteArrays:
+    values = np.asarray(values, dtype=np.uint64)
+    if len(values) == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return VByteArrays(np.zeros(0, np.uint8), z, z)
+    # number of 7-bit groups
+    nbits = np.ones(len(values), dtype=np.int64)
+    x = values >> np.uint64(7)
+    while (x > 0).any():
+        nbits += (x > 0).astype(np.int64)
+        x >>= np.uint64(7)
+    total = int(nbits.sum())
+    sym = np.repeat(np.arange(len(values), dtype=np.int64), nbits)
+    offsets = np.cumsum(nbits) - nbits
+    intra = np.arange(total, dtype=np.int64) - offsets[sym]
+    groups = (values[sym] >> (intra * 7).astype(np.uint64)) & np.uint64(0x7F)
+    is_last = intra == (nbits[sym] - 1)
+    out = np.where(is_last, groups, groups | np.uint64(0x80)).astype(np.uint8)
+    return VByteArrays(out, nbits, intra)
 
 
 def vbyte_encode(v: int) -> bytes:

@@ -68,6 +68,7 @@ KERNELS = {
     "tdc_lzw_parse": ("lzw_parse", [_P, _L, _P, _I, _P, _I, _P, _P, _P]),
     "tdc_plcp_segments": ("plcp_segments", [_P, _P, _L, _I, _P, _P, _P]),
     "tdc_esp_adjust": ("esp_adjust_windows", [_P, _P, _P, _P, _P, _I, _P]),
+    "tdc_mtf_encode_chunks": ("mtf_encode", [_P, _L, _P, _P, _I, _P]),
     # csrc/probes.cu
     "tdc_probe3_gather": ("probe3_gather", [_P, _P, _P, _I, _L, _L, _P, _P, _P]),
     "tdc_probe6_roll_lane": ("probe6_roll_lane", [_P, _P, _P]),

@@ -8,7 +8,9 @@ PLCP, the permutation helpers, the SparseISA build, the LZSS factorizer and
 the lzss stream parse and factor copy), the ESP round, the SLP's expansion,
 the canonical index decode and the longest increasing subsequence of the
 esp coders, the arithmetic coder's loops, and lcpcomp's six factorization
-strategies, factor flatten and four decoders: 35 entry points. The library
+strategies, factor flatten and four decoders, the RLE decode, the MTF
+encode and decode, the BWT's LF walk, the sliding-window lzss parse and
+Re-Pair's build and expansion: 42 entry points. The library
 is built with g++ at first use into `build/tudocomp_tpu_torch/` at the
 repository root (git-ignored), named by a hash of the source, so a change rebuilds. Every caller keeps a
 pure-Python fallback, so the host path runs, slower, where no compiler is
@@ -107,6 +109,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tdc_lcpcomp_compact_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64]),
         "tdc_lcpcomp_queuelist_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64]),
         "tdc_lcpcomp_multimap_decode": (i32, [u8p, i64, u32p, u32p, u32p, i64, i64]),
+        "tdc_rle_decode": (i64, [u8p, i64, i64, u8p, i64]),
+        "tdc_mtf_decode": (None, [u8p, i64, u8p]),
+        "tdc_mtf_encode": (None, [u8p, i64, u8p]),
+        "tdc_bwt_walk": (None, [u8p, i64p, i64, u8p]),
+        "tdc_lzss_window_parse": (i64, [u8p, i64, i64, i64, u8p, u32p, u32p, u32p]),
+        "tdc_repair_build": (i64, [u32p, i64, i64, u32p, u32p, i64p]),
+        "tdc_repair_expand": (i64, [u32p, u32p, i64, u32p, i64, u8p, i64]),
     }
     for strategy in ("arrays", "heap", "bheap", "plcp", "maxlcp", "plcppeaks"):
         # (sa, isa, lcp or plcp, n, threshold, fpos, fsrc, flen) -> factors

@@ -5,7 +5,8 @@ of include/tudocomp/Registry.hpp:11-238), trimmed to registration, lookup
 and selection: it maps (type, name) to algorithm classes and selects and
 instantiates them from id strings. `TorchRegistry` holds the algorithms of
 the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `esp`,
-`lcpcomp`, `encode`, the Huffman, arithmetic, sle and universal coders
+`lcpcomp`, `encode`, the transforms `noop`, `rle`, `mtf` and `bwt`,
+`chain`, the host-only `lzss` and `repair`, the Huffman, arithmetic, sle and universal coders
 `huff`, `arithmetic`, `sle`, `ascii`, `bit`, `gamma`, `delta`, `ternary`,
 `vbyte`, the `lz78trie` axis and the hash axes of its hash tries, the
 `textds` axis and its providers, esp's `slp_coder`, `d_coding`, `subseq`
@@ -33,12 +34,16 @@ from .coders.universal import (
 from .compressors import esp_dcoding as dc
 from .compressors import hash_axes, lz78_tries
 from .compressors.blockwise import BlockwiseCompressor
+from .compressors.bwt import BWTCompressor
+from .compressors.chain import ChainCompressor
 from .compressors.esp import IPDS, EspCompressor, PlainSLPCoder, SortedSLPCoder
 from .compressors.lcpcomp import COMP_STRATEGIES, DEC_STRATEGIES, LCPCompressor
 from .compressors.lz78 import LZ78Compressor
+from .compressors.lzss import LZSSSlidingWindowCompressor
 from .compressors.lzss_lcp import LZSSLCPCompressor
 from .compressors.lzw import LZWCompressor
-from .compressors.simple import LiteralEncoder
+from .compressors.repair import RePairCompressor
+from .compressors.simple import LiteralEncoder, MTFCompressor, NoopCompressor, RunLengthEncoder
 from .device import resolve
 from .ds import textds_algo
 from .dsl import evaluate, parse
@@ -95,6 +100,13 @@ class TorchRegistry(Registry):
             LZWCompressor,
             LZSSLCPCompressor,
             LiteralEncoder,
+            NoopCompressor,
+            RunLengthEncoder,
+            MTFCompressor,
+            ChainCompressor,
+            BWTCompressor,
+            LZSSSlidingWindowCompressor,
+            RePairCompressor,
             HuffmanCoder,
             ASCIICoder,
             BitCoder,
