@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tudocomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns PARENT   # kernels A-H and P7 of PARENT's checkout and this one, in turns
-    python3 chip_smoke.py --dh ROOT        # kernels A-H and P7 of ROOT's checkout, one JSON line
+    python3 chip_smoke.py --turns PARENT   # kernels A-J and P7 of PARENT's checkout and this one, in turns
+    python3 chip_smoke.py --dh ROOT        # kernels A-J and P7 of ROOT's checkout, one JSON line
     python3 chip_smoke.py --j              # kernel J's device ms on phase 16's English text, one JSON line
 
 Runs from the root of a checkout and needs one CUDA card. The reference
@@ -122,10 +122,12 @@ line each:
                     device rounds of 16 MiB of bench.py's English stand-in
                     (synth_english, seed 7: bench.py's device_esp_16MiB input)
                     and on tests/torch_cases.py's edge spans (widths 1-260,
-                    all ones, alternating types, no spans); each round's
+                    all ones, alternating types, no spans, and the cases of
+                    its warps' staging); each round's
                     blocks, spans, widest span, wrapper ms (CUDA events,
                     fresh copies of the blocks made outside the events: it
-                    works in place), device ms, plain ms and bound;
+                    works in place), device ms, plain ms and bound, and the
+                    bytes its warps stage in shared memory beside it;
  13. esp roundtrip  esp and esp(slp_coder=sorted(d_coding=arith)) on those
                     16 MiB, and esp and esp(slp_coder=sorted) on 1 MiB of the
                     same text (bench.py's esp cells), through driver.compress /
@@ -168,7 +170,8 @@ line each:
                     16 MiB of the English stand-in, of the DNA text and of
                     uniform random bytes, on the RLE output of the English
                     text (what rle:mtf feeds it) and on tests/torch_cases.py's
-                    edge inputs (mtf_edge_cases); its wrapper ms on each 16
+                    edge inputs (mtf_edge_cases), each at its default chunk
+                    and at every chunk of MTF_CHUNKS; its wrapper ms on each 16
                     MiB input, plain ms and device ms by kernel (J1-J3,
                     torch.profiler in a fresh process, `--j`: late in this
                     run the profiler keeps no events) on the English one,
@@ -186,7 +189,7 @@ line each:
                     of one warm 16 MiB English encode and decode of each
                     chain, card against host, and the sweep behind
                     device.RLE_MIN_N and MTF_MIN_N: each device stage with
-                    its copies against its host stage, on prefixes of 16
+                    its copies against its host stage, on prefixes of 4
                     KiB to 16 MiB of the English text, best of 2-3.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
@@ -195,10 +198,13 @@ failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
 
---turns PARENT compares kernels A-H and P7 of two checkouts on one card: it
+--turns PARENT compares kernels A-J and P7 of two checkouts on one card: it
 runs this script with --dh in a process of its own for PARENT, this
 checkout, this checkout and PARENT, in that order. --dh ROOT builds ROOT's
-kernels and times C on phase 2's histograms, G and the shared table's stage
+kernels and times, first (late in a long process the profiler drops
+events), J on phase 16's four 16 MiB inputs and I on each device round of
+phase 12's 16 MiB grammar (device ms by __global__ function under either
+design's names), then C on phase 2's histograms, G and the shared table's stage
 (shared_tables, which is C's int64 instance where the checkout has one) on
 their summed row, phase 3's 64 MiB encode through the driver, per-block
 and shared=1, three times each in turns, A and B at phase 2's shapes (device ms under the
@@ -267,7 +273,7 @@ REPAIR_BYTES = 128 << 10
 # the stages before mtf in an id: the input kernel J sees is their output
 MTF_FEED = {"mtf": None, "rle:mtf:encode(vbyte)": "rle", "bwt:rle:mtf:encode(huff)": "bwt:rle",
             "chain(bwt, chain(rle, chain(mtf, encode(huff))))": "bwt:rle"}
-TRANSFORM_SWEEP = (16 << 10, 64 << 10, 256 << 10, MIB, 4 * MIB, 16 * MIB)  # behind RLE_MIN_N, MTF_MIN_N
+TRANSFORM_SWEEP = tuple(k << 10 for k in (4, 8, 16, 32, 64, 256, 1024, 4096, 16384))  # behind RLE_MIN_N, MTF_MIN_N
 MTF_CHUNKS = (1024, 2048, 4096, 8192)  # kernel J's chunk sizes timed in phase 16
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
 LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
@@ -366,8 +372,8 @@ DEVICE_FNS = {
     "lz78_parse": ("lz78_kernel",),
     "lzw_parse": ("lzw_kernel",),
     "plcp_segments": ("phi_kernel", "plcp_upper_kernel", "plcp_level_kernel"),
-    "esp_adjust_windows": ("esp_adjust_kernel",),
-    "mtf_encode": ("mtf_last_kernel", "mtf_entry_kernel", "mtf_walk_kernel"),
+    "esp_adjust_windows": ("esp_adjust_staged_kernel",),
+    "mtf_encode": ("mtf_last_kernel", "mtf_entry_kernel", "mtf_walkers_kernel"),
     "probe3_gather": ("gather_kernel",),
     "probe6_roll_lane": ("p6_roll_lane_kernel",),
     "probe6_roll_sublane": ("p6_roll_sublane_kernel",),
@@ -383,13 +389,16 @@ DEVICE_FNS = {
     "probe8_d": ("p8_d_kernel",),
 }
 # the names of kernels A's and B's __global__ functions before their
-# one-store-a-word tiles (a tile-sum pass and an atomicOr scatter), and of
-# kernel C's before its two instances, so that --dh times a checkout of
+# one-store-a-word tiles (a tile-sum pass and an atomicOr scatter), of
+# kernel C's before its two instances, of kernel I's before its persistent
+# grid and of J3 before its walkers, so that --dh times a checkout of
 # either design
 OLD_DEVICE_FNS = {
     "huffman_tables": ("huffman_tables_kernel",),
     "pack_blocks": ("tile_sums_kernel<false>", "scatter_kernel<false>"),
     "pack_bytes_blocks": ("tile_sums_kernel<true>", "scatter_kernel<true>"),
+    "esp_adjust_windows": ("esp_adjust_kernel",),
+    "mtf_encode": ("mtf_walk_kernel",),
 }
 
 
@@ -980,7 +989,9 @@ def host_plcp(text, sa):
 
 
 def dh_phase(dev, gpu, package: str) -> dict:
-    """Kernels A-H and P7 alone, from the package first on sys.path: C, G
+    """Kernels A-J and P7 alone, from the package first on sys.path: J on
+    phase 16's four 16 MiB inputs (j_timing) and I on each device round of
+    phase 12's 16 MiB grammar (i_timing), first; C, G
     and the shared table's stage (table_timing); A and B at phase 2's
     shapes (pack_timing); D
     on the 1024 x 16 KiB zipf(1.3) streams of phase 2 and the 256 x 256 KiB
@@ -1000,6 +1011,8 @@ def dh_phase(dev, gpu, package: str) -> dict:
     from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
     from tudocomp_tpu_torch.ops import plcp_torch
 
+    mtf, esp = j_timing(dev), i_timing(dev)  # first: late in a long process the profiler drops events
+    torch.cuda.empty_cache()
     tables = table_timing(dev)
     pack = pack_timing(dev)
     torch.cuda.empty_cache()
@@ -1048,10 +1061,53 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p7 = p7_timing(probes, *probes.probe7_inputs(dev))
     torch.cuda.empty_cache()
     no_jax()
-    return {"phase": "kernels A-H and P7", "package": package, "tables": tables, "encode": encode, **pack,
+    return {"phase": "kernels A-J and P7", "package": package, "mtf_encode": mtf, "esp_adjust_windows": esp,
+            "tables": tables, "encode": encode, **pack,
             "decode": dec, "plcp": h,
             "lcp_device_stage_best_of_3_s": stage, "lzw_parse": f, "lz78_parse": e, "probe7_pack": p7,
             "card": gpu}
+
+
+def j_timing(dev) -> dict:
+    """Kernel J on phase 16's four 16 MiB inputs, each held to the host's
+    tdc_mtf_encode: wrapper ms (CUDA events) and device ms by __global__
+    function (torch.profiler, under either design's names)."""
+    import numpy as np
+
+    from tudocomp_tpu_torch.ops.mtf_cuda import mtf_encode_chunks
+    from tudocomp_tpu_torch.ops.transforms_torch import upload
+
+    fns = DEVICE_FNS["mtf_encode"] + OLD_DEVICE_FNS["mtf_encode"]
+    out = {}
+    for which, arr in transform_inputs(english_bytes(TRANSFORM_BYTES)).items():
+        arr = np.ascontiguousarray(arr)
+        x = upload(arr, dev)
+        if not np.array_equal(mtf_encode_chunks(x).cpu().numpy(), host_mtf(arr)[0]):
+            raise AssertionError(f"kernel J differs from tdc_mtf_encode on {which}")
+        out[which] = {"ms": cuda_ms(lambda: mtf_encode_chunks(x)),
+                      **device_time(lambda: mtf_encode_chunks(x), None, iters=10, fns=fns)}
+        del x
+    return out
+
+
+def i_timing(dev) -> list:
+    """Kernel I on each device round of phase 12's 16 MiB grammar, each held
+    to its plain version: the spans, wrapper ms (CUDA events around the
+    kernel alone, fresh copies made outside them) and device ms
+    (torch.profiler, under either design's names)."""
+    from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
+
+    fns = DEVICE_FNS["esp_adjust_windows"] + OLD_DEVICE_FNS["esp_adjust_windows"]
+    rounds = []
+    for size, _nb, spans, fresh in esp_rounds(english_bytes(ESP_BYTES), dev):
+        got, plain = fresh(), fresh()
+        esp_adjust_windows(*got)
+        esp_adjust_windows_plain(*plain)
+        if max_abs_err(got[:2], plain[:2]):
+            raise AssertionError(f"kernel I differs from its plain version in the round of size {size}")
+        rounds.append({"size": size, "spans": int(spans[2][0]), "ms": fresh_event_ms(esp_adjust_windows, fresh),
+                       **device_time(lambda: esp_adjust_windows(*fresh()), None, fns=fns)})
+    return rounds
 
 
 def encode_timing(data: bytes) -> dict:
@@ -2389,6 +2445,46 @@ def fresh_event_ms(fn, fresh, iters: int = 20) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def esp_rounds(english, dev):
+    """The device rounds of esp_grammar_device on the first ESP_BYTES of
+    `english` while they run on the card: for each, (size, nb, spans,
+    fresh), spans adjust_spans's (ws, we, ns) and fresh() a fresh
+    (lens, typs, ws, we, ns) for kernel I, which adjusts in place."""
+    from tudocomp_tpu_torch.ops import esp_torch as et
+
+    src, size, m, alphabet = padded_input(english[:ESP_BYTES], dev)
+    while size // 2 >= ESP_THRESHOLDS[1]:
+        lens, typs, nb = et.stage_blocks(src, m, alphabet)
+        spans = et.adjust_spans(lens, nb)
+
+        def fresh(lens=lens, typs=typs, spans=spans):
+            return (lens.clone(), typs.clone(), *spans)
+
+        yield size, nb, spans, fresh
+        src, m, _rl, _rr, alphabet, overflow = et.round_body(src, m, alphabet)
+        if bool(overflow):
+            raise AssertionError(f"round of size {size} set its overflow flag")
+        size //= 2
+
+
+def staged_bytes(spans) -> int:
+    """Bytes kernel I's warps stage (csrc/esp.cu: read into shared memory
+    and written back, 16 a block), for the live spans of (ws, we, ns): a
+    warp's 32 spans of at most SLOT blocks, in order, while their blocks
+    stay within CAP; the others walk device memory."""
+    import torch
+
+    from tudocomp_tpu_torch.ops.esp_kernels import CAP, SLOT
+
+    ws, we, ns = spans
+    k = int(ns[0])
+    w = (we[:k] - ws[:k]).to(torch.int64)
+    narrow = torch.where(w <= SLOT, w, 0)
+    pad = -k % 32
+    incl = torch.cumsum(torch.cat([narrow, narrow.new_zeros(pad)]).view(-1, 32), 1).view(-1)[:k]
+    return 16 * int(torch.where(incl <= CAP, narrow, 0).sum())
+
+
 def esp_kernel_phase(english, dev, gpu):
     """Phase 12: kernel I against its plain version, exactly, on the spans of
     every device round of the 16 MiB input and on tests/torch_cases.py's
@@ -2397,19 +2493,11 @@ def esp_kernel_phase(english, dev, gpu):
     import torch
 
     from tests import torch_cases
-    from tudocomp_tpu_torch.ops import esp_torch as et
     from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
 
     name = "esp_adjust_windows"
-    src, size, m, alphabet = padded_input(english[:ESP_BYTES], dev)
     err, rounds = 0, []
-    while size // 2 >= ESP_THRESHOLDS[1]:
-        lens, typs, nb = et.stage_blocks(src, m, alphabet)
-        spans = et.adjust_spans(lens, nb)
-
-        def fresh(lens=lens, typs=typs, spans=spans):  # the wrappers adjust (lens, typs) in place
-            return (lens.clone(), typs.clone(), *spans)
-
+    for size, nb, spans, fresh in esp_rounds(english, dev):
         got, plain = fresh(), fresh()
         esp_adjust_windows(*got)
         _, plain_ms = cuda_once(lambda: esp_adjust_windows_plain(*plain))
@@ -2421,12 +2509,8 @@ def esp_kernel_phase(english, dev, gpu):
             "widest_span": int(widths.max()) if len(widths) else 0, "max_abs_err": e,
             "ms": fresh_event_ms(esp_adjust_windows, fresh),
             **device_time(lambda: esp_adjust_windows(*fresh()), name),
-            "plain_ms": plain_ms, **bound(name, got, got[:2]),
+            "plain_ms": plain_ms, **bound(name, got, got[:2]), "staged_bytes": staged_bytes(spans),
         })
-        src, m, _rl, _rr, alphabet, overflow = et.round_body(src, m, alphabet)
-        if bool(overflow):
-            raise AssertionError(f"round of size {size} set its overflow flag")
-        size //= 2
     edge = {}
     for case, args in torch_cases.esp_edge_spans(dev).items():
         got, plain = [a.clone() for a in args], [a.clone() for a in args]
@@ -2439,7 +2523,7 @@ def esp_kernel_phase(english, dev, gpu):
     emit({"phase": "esp kernel", "max_abs_err": err, "tolerance": 0, "edge_spans_max_abs_err": edge,
           "rounds": rounds, "card": gpu})
     keys = ("ms", "device_ms", "plain_ms", "bound_ms")
-    line = {k: rounds[0][k] for k in (*keys, "device_events", "bound_by")}
+    line = {k: rounds[0][k] for k in (*keys, "device_events", "bound_by", "staged_bytes")}
     line["per_grammar"] = {k: sum(r[k] or 0.0 for r in rounds) for k in keys}
     line["shape"] = "the first round of the 16 MiB input (the largest launch); per_grammar sums the 9 rounds"
     return {name: err}, {name: line}
@@ -2744,6 +2828,34 @@ def lcpcomp_sweep(english, dev) -> dict:
     return sweep
 
 
+def transform_inputs(english) -> dict:
+    """Phase 16's four 16 MiB inputs of kernel J: the English text, the DNA
+    text, the English text's RLE output (what rle:mtf feeds J) and uniform
+    random bytes."""
+    import numpy as np
+
+    from tudocomp_tpu_torch.compressors.simple import rle_encode
+
+    text = english[:TRANSFORM_BYTES]
+    with host_path():
+        rle_text = rle_encode(text)
+    return {"synth_english": text, "dna": dna_bytes(TRANSFORM_BYTES), "rle of synth_english": rle_text,
+            "uniform": np.random.default_rng(7).integers(0, 256, TRANSFORM_BYTES).astype(np.uint8)}
+
+
+def host_mtf(arr) -> tuple:
+    """The host's tdc_mtf_encode of arr (uint8, contiguous) and its seconds."""
+    import numpy as np
+
+    from tudocomp_tpu_torch import native
+
+    out = np.empty(len(arr), np.uint8)
+    t0 = time.perf_counter()
+    if len(arr):
+        native.get_lib().tdc_mtf_encode(arr, len(arr), out)
+    return out, time.perf_counter() - t0
+
+
 def transforms_kernel_phase(english, dev, gpu):
     """Phase 16: kernel J against mtf_encode_plain and the host's
     tdc_mtf_encode, exactly, on the 16 MiB inputs and the edge inputs; its
@@ -2753,31 +2865,22 @@ def transforms_kernel_phase(english, dev, gpu):
     import torch
 
     from tests import torch_cases
-    from tudocomp_tpu_torch import native
-    from tudocomp_tpu_torch.compressors.simple import rle_encode
     from tudocomp_tpu_torch.ops.mtf_cuda import mtf_encode_chunks
     from tudocomp_tpu_torch.ops.transforms_torch import CHUNK, mtf_encode_plain, upload
 
     name = "mtf_encode"
-    lib = native.get_lib()
-    text = english[:TRANSFORM_BYTES]
-    with host_path():
-        rle_text = rle_encode(text)
-    inputs = {"synth_english": text, "dna": dna_bytes(TRANSFORM_BYTES), "rle of synth_english": rle_text,
-              "uniform": np.random.default_rng(7).integers(0, 256, TRANSFORM_BYTES).astype(np.uint8)}
+    inputs = transform_inputs(english)
     inputs.update({f"edge: {k}": np.frombuffer(v, np.uint8) for k, v in torch_cases.mtf_edge_cases().items()})
     report, err, line = {}, 0, None
     for which, arr in inputs.items():
         arr = np.ascontiguousarray(arr)
         x = upload(arr, dev)
         got = mtf_encode_chunks(x)
-        host = np.empty(len(arr), np.uint8)
-        t0 = time.perf_counter()
-        if len(arr):
-            lib.tdc_mtf_encode(arr, len(arr), host)
-        host_s = time.perf_counter() - t0
+        host, host_s = host_mtf(arr)
         plain, plain_ms = cuda_once(lambda: mtf_encode_plain(x))
-        e = max(max_abs_err(got, plain), max_abs_err(got.cpu(), torch.from_numpy(host)))
+        host_t = torch.from_numpy(host)
+        e = max(max_abs_err(got, plain), max_abs_err(got.cpu(), host_t),
+                *(max_abs_err(mtf_encode_chunks(x, chunk).cpu(), host_t) for chunk in MTF_CHUNKS))
         err = max(err, e)
         entry = {"bytes": len(arr), "max_abs_err": e, "host_tdc_mtf_encode_s": host_s}
         if not which.startswith("edge"):
@@ -2787,16 +2890,10 @@ def transforms_kernel_phase(english, dev, gpu):
             line = {"ms": entry["ms"], **device_time(lambda: mtf_encode_chunks(x), name), "plain_ms": plain_ms,
                     **bound(name, (x,), got), "scratch_bytes": -(-len(arr) // CHUNK) * 256 * 4,
                     "shape": f"{len(arr)} bytes of synth_english in chunks of {CHUNK}"}
-            chunks = {}
-            for chunk in MTF_CHUNKS:
-                other = mtf_encode_chunks(x, chunk)
-                if not torch.equal(other, got):
-                    raise AssertionError(f"kernel J at chunks of {chunk} differs from chunks of {CHUNK}")
-                chunks[chunk] = cuda_ms(lambda: mtf_encode_chunks(x, chunk))
-            line["ms_by_chunk"] = chunks
+            line["ms_by_chunk"] = {chunk: cuda_ms(lambda: mtf_encode_chunks(x, chunk)) for chunk in MTF_CHUNKS}
             line.update(fresh_j_device_time())
         report[which] = entry
-        del x, got, plain
+        del x, got, plain, host_t
     torch.cuda.synchronize()
     if err:
         raise AssertionError(f"kernel J differs from its plain version or the host: {report}")

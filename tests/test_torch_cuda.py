@@ -619,7 +619,10 @@ ESP_EDGE = sorted(tc.esp_edge_spans())
 @pytest.mark.parametrize("case", ESP_EDGE)
 def test_esp_adjust_kernel_edge_spans(dev, case):
     """Kernel I against its plain version on the edge spans: widths 1 to 260,
-    all ones, alternating types, no spans."""
+    all ones, alternating types, no spans, spans past ns; for its warps,
+    spans of width 1, ns at the static bound with the last warp partly
+    filled, a span wider than the shared slot, spans past a warp's staging
+    capacity."""
     from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
 
     lens, typs, ws, we, ns = tc.esp_edge_spans(dev)[case]
@@ -729,11 +732,15 @@ def _host_mtf(data: bytes) -> np.ndarray:
     return out
 
 
-@pytest.mark.parametrize("chunk", [128, 4096, 8192])
+@pytest.mark.parametrize("chunk", [128, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("case", MTF_CASES)
 def test_mtf_kernel_cases(dev, case, chunk):
-    """Kernel J against its plain version and the host's table walk, at
-    three chunk sizes; one launch a call (none for an empty input)."""
+    """Kernel J against its plain version and the host's table walk, at the
+    smallest chunk and each of chip_smoke.py's MTF_CHUNKS (the walkers'
+    edges: less than a sub-chunk, one byte past a chunk, runs across every
+    sub-chunk boundary, all 256 symbols in each sub-chunk at 8192, rank 255
+    at every step in the cycle of 256); one launch a call (none for an
+    empty input)."""
     from tudocomp_tpu_torch.ops.mtf_cuda import mtf_encode_chunks
     from tudocomp_tpu_torch.ops.transforms_torch import mtf_encode_plain
 

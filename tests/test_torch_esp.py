@@ -11,11 +11,16 @@
   segments; a round whose blocks would not fit raises.
 - Queue machine: the adjust pass (spans and kernel I's plain version) against
   the host _adjust_blocks on random block lists, with spans wider than the
-  JAX package's 128-block cap; kernel I's edge spans.
+  JAX package's 128-block cap; kernel I's edge spans; a lane-by-lane model
+  of kernel I's warps (csrc/esp.cu: each group of 32 spans staged by a warp
+  scan of their widths and a binary search over it, the spans past the
+  slot or the warp's capacity walked in place) against the plain version.
 - tdc_lis_indices (C++) against a Python copy of the patience-sorting loop.
 Tolerance: exact equality everywhere (integer arithmetic).
 """
 
+import os
+import re
 from bisect import bisect_left
 
 import numpy as np
@@ -31,7 +36,7 @@ from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.compressors import esp
 from tudocomp_tpu_torch.compressors.esp_dcoding import SubSeqOptimal, _lis_indices
 from tudocomp_tpu_torch.ops import esp_torch as et
-from tudocomp_tpu_torch.ops.esp_kernels import esp_adjust_windows, esp_adjust_windows_plain
+from tudocomp_tpu_torch.ops.esp_kernels import CAP, SLOT, esp_adjust_windows, esp_adjust_windows_plain
 
 from . import torch_cases
 
@@ -240,6 +245,111 @@ def test_kernel_i_edge_spans(case):
     for a, b in zip(ws[: int(ns)].tolist(), we[: int(ns)].tolist()):
         outside[a:b] = False
     assert torch.equal(got_l[outside], lens[outside]) and torch.equal(got_t[outside], typs[outside])
+
+
+def _queue(L: list, T: list, a: int, n: int) -> None:
+    """csrc/esp.cu:adjust_span over L[a:a + n], T[a:a + n], in place: the
+    first three fills, then a merge or a pop and at most one fill a pass."""
+    qn = ip = min(n, 3)
+    q = [[L[a + j], T[a + j]] for j in range(qn)] + [[0, 0]] * (3 - qn)
+    (l0, t0), (l1, t1), (l2, t2) = q
+    op = 0
+    while qn > 0:
+        merged = False
+        if l0 == 1 or (qn > 1 and l1 == 1) or (qn > 2 and l2 == 1):
+            if qn == 3 and (l1 == 1 or l2 == 1) and t1 == 2 and t2 == 2:
+                if l1 + l2 <= 3:
+                    l1, t1, qn = l1 + l2, 2, 2
+                else:
+                    l1 = l2 = t1 = t2 = 2
+                merged = True
+            elif qn >= 2 and (l0 == 1 or l1 == 1):
+                mt = 2 if (t0 == 2 and t1 == 2) else 3 if t0 == 3 else 1 if (t0 == 1 or t1 == 1) else 0
+                if mt:
+                    if l0 + l1 <= 3:
+                        l0, t0, l1, t1, qn = l0 + l1, mt, l2, t2, qn - 1
+                    else:
+                        l0, l1, t0, t1 = 2, 2, mt, mt
+                    merged = True
+        if not merged:
+            L[a + op], T[a + op] = l0, t0
+            op += 1
+            l0, t0, l1, t1, qn = l1, t1, l2, t2, qn - 1
+        if qn < 3 and ip < n:
+            bl, bt = L[a + ip], T[a + ip]
+            if qn == 0:
+                l0, t0 = bl, bt
+            elif qn == 1:
+                l1, t1 = bl, bt
+            else:
+                l2, t2 = bl, bt
+            qn, ip = qn + 1, ip + 1
+    for j in range(op, n):
+        L[a + j] = 0
+
+
+def _kernel_i_warps(lens, typs, ws, we, ns):
+    """Kernel I's warps (csrc/esp.cu: esp_adjust_staged_kernel), lane by
+    lane: each group of 32 spans staged into a buffer through the warp's
+    inclusive scan of the widths up to SLOT and a binary search over it,
+    the lanes' machines run there (the others' in place), written back the
+    same way. Returns the adjusted (lens, typs) as lists."""
+    L, T = lens.tolist(), typs.tolist()
+    live = min(int(ns[0]), len(ws))
+    for g in range(0, live, 32):
+        a = [int(ws[s]) if s < live else 0 for s in range(g, g + 32)]
+        width = [int(we[s]) - a[k] if g + k < live else 0 for k, s in enumerate(range(g, g + 32))]
+        narrow = [w if w <= SLOT else 0 for w in width]
+        incl = np.cumsum(narrow).tolist()
+        staged = [narrow[k] > 0 and incl[k] <= CAP for k in range(32)]
+        total = max([incl[k] for k in range(32) if staged[k]], default=0)
+        at = []
+        for f in range(total):
+            k = 0
+            for step in (16, 8, 4, 2, 1):
+                if incl[k + step - 1] <= f:
+                    k += step
+            assert staged[k]
+            at.append(a[k] + f - (incl[k] - narrow[k]))
+        bl, bt = [L[x] for x in at], [T[x] for x in at]
+        for k in range(32):
+            if staged[k]:
+                _queue(bl, bt, incl[k] - narrow[k], width[k])
+            elif width[k] > 0:
+                _queue(L, T, a[k], width[k])
+        for f, x in enumerate(at):
+            L[x], T[x] = bl[f], bt[f]
+    return L, T
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_SPANS))
+def test_kernel_i_warp_model(case):
+    lens, typs, ws, we, ns = EDGE_SPANS[case]
+    want_l, want_t = lens.clone(), typs.clone()
+    esp_adjust_windows_plain(want_l, want_t, ws, we, ns)
+    got_l, got_t = _kernel_i_warps(lens, typs, ws, we, ns)
+    assert got_l == want_l.tolist() and got_t == want_t.tolist()
+
+
+def test_kernel_i_warp_model_on_a_round():
+    """The model on the spans of the first device round of 64 KiB of a
+    4-letter text (1728 spans)."""
+    data = np.random.default_rng(1).integers(0, 4, 1 << 16).astype(np.uint8)
+    size = 1 << 16
+    src = et.padded(data, size, CPU)
+    lens, typs, nb = et.stage_blocks(src, torch.tensor(len(data), dtype=torch.int32), torch.tensor(256, dtype=torch.int32))
+    ws, we, ns = et.adjust_spans(lens, nb)
+    assert int(ns[0]) > 64
+    want_l, want_t = lens.clone(), typs.clone()
+    esp_adjust_windows_plain(want_l, want_t, ws, we, ns)
+    got_l, got_t = _kernel_i_warps(lens, typs, ws, we, ns)
+    assert got_l == want_l.tolist() and got_t == want_t.tolist()
+
+
+def test_kernel_i_staging_limits_match_esp_cu():
+    src = open(os.path.join(os.path.dirname(et.__file__), "..", "csrc", "esp.cu")).read()
+    assert re.search(rf"constexpr int SLOT = {SLOT};", src) and re.search(rf"constexpr int CAP = {CAP};", src)
+    assert SLOT * 32 > CAP  # a warp of wide spans overflows: the model's cases reach past CAP
 
 
 def test_kernel_i_wrapper_checks_its_inputs():

@@ -10,10 +10,16 @@ ops/transforms_torch.py on CPU tensors:
     tests/torch_cases.py's edge inputs at two chunk sizes;
   - the chunking behind kernel J: the entry tables that J1's and J2's
     arrays rank to (chunk_last_positions, entry_positions, entry_tables)
-    against the table of a sequential walk at each chunk start, and a
-    lane-by-lane numpy model of J3's warp walk (8 table bytes a lane, the
-    rank by a minimum over the lanes, the shift by one lane's top byte
-    handed up) against the host's table walk;
+    against the table of a sequential walk at each chunk start; the
+    walkers' grain inside a chunk (walker_last_positions against a direct
+    count, walker_tables against the walk's table at each sub-chunk start,
+    mtf_encode_plain at sub-chunk sizes against the JAX scan and
+    ops/mtf.py); and numpy models of J3's steps, lane by lane: the bitonic
+    network that sorts a chunk's entry keys across the warp, the warp pass
+    that builds each walker's table from the last one's (each sub-chunk's
+    symbols by a backward scan, a warp scan placing the rest), and the
+    walkers' walk (the table in 64 words, the SWAR search, the funnel
+    shifts), against entry_tables, walker_tables and the host's walk;
   - rle_runs_device against tudocomp_tpu/ops/transforms.py:rle_runs_device;
   - the gates TDC_DEVICE_RLE and TDC_DEVICE_MTF.
 Tolerance: exact equality (every stage is integer arithmetic).
@@ -31,6 +37,7 @@ import jax.numpy as jnp
 
 from tudocomp_tpu.compressors.simple import mtf_encode as jax_mtf_encode
 from tudocomp_tpu.ops import transforms as jax_transforms
+from tudocomp_tpu.ops.mtf import mtf_encode_host as jax_mtf_encode_host
 from tudocomp_tpu_torch import device as tdev
 from tudocomp_tpu_torch import native
 from tudocomp_tpu_torch.ops import transforms_torch as tt
@@ -42,7 +49,6 @@ JAX_CHUNK = 4096
 JAX_LEN = 4 * JAX_CHUNK  # every MTF input is padded to this: one compiled scan
 RLE_LEN = 20480  # every RLE input is padded to this, by one run of another byte
 MTF_CU = os.path.join(os.path.dirname(tt.__file__), "..", "csrc", "mtf.cu")
-SHIFTS = np.arange(0, 32, 8, dtype=np.uint32)
 # the JAX package's scan under one jit, so that it compiles once, not a call
 JAX_MTF = jax.jit(jax_transforms.mtf_encode_device, static_argnums=1)
 
@@ -111,43 +117,189 @@ def test_entry_tables_match_a_sequential_walk(case, chunk):
     np.testing.assert_array_equal(tt.entry_tables(entry).numpy(), _walk_tables(arr, chunk))
 
 
-def _lane_walk(block: np.ndarray, table: np.ndarray) -> np.ndarray:
-    """J3's walk of one chunk (csrc/mtf.cu: mtf_walk_kernel), lane by lane:
-    lane l holds table positions 8l..8l+7 as two little-endian words."""
-    words = table.view(np.uint32).reshape(32, 2).copy()
-    lo, hi = words[:, 0].copy(), words[:, 1].copy()
-    lane8 = np.arange(32, dtype=np.int64) * 8
-    full = np.uint32(0xFFFFFFFF)
-    out = np.empty(len(block), np.uint8)
-    for i, ch in enumerate(block.tolist()):
-        # __vcmpeq4: which of each word's 4 bytes equal ch
-        elo, ehi = (((w[:, None] >> SHIFTS) & np.uint32(0xFF)) == ch for w in (lo, hi))
-        cand = np.full(32, 256, np.int64)
-        has_lo, has_hi = elo.any(1), ehi.any(1)
-        cand[has_hi] = lane8[has_hi] + 4 + ehi[has_hi].argmax(1)
-        cand[has_lo] = lane8[has_lo] + elo[has_lo].argmax(1)
-        rank = int(cand.min())  # __reduce_min_sync
-        cin = np.roll(hi >> np.uint32(24), 1)  # __shfl_up_sync(hi >> 24, 1)
-        cin[0] = ch
-        take = np.clip(rank - lane8 + 1, 0, 8)
-        take_lo = np.where(take >= 4, full, (np.uint64(1) << (8 * np.minimum(take, 3)).astype(np.uint64)) - 1).astype(np.uint32)
-        hi_bits = (np.uint64(1) << (8 * np.clip(take - 4, 0, 3)).astype(np.uint64)) - 1
-        take_hi = np.where(take >= 8, full, np.where(take <= 4, 0, hi_bits)).astype(np.uint32)
-        slo = (lo << np.uint32(8)) | cin.astype(np.uint32)
-        shi = (hi << np.uint32(8)) | (lo >> np.uint32(24))
-        lo, hi = (slo & take_lo) | (lo & ~take_lo), (shi & take_hi) | (hi & ~take_hi)
-        out[i] = rank
+def _popc(x: np.ndarray) -> np.ndarray:
+    return np.unpackbits(x.astype("<u4").view(np.uint8).reshape(-1, 4), axis=1).sum(1).astype(np.uint32)
+
+
+def _walker_walk(blocks: np.ndarray, lens: np.ndarray, tables: np.ndarray) -> np.ndarray:
+    """J3's walk (csrc/mtf.cu: mtf_step), the 32 walkers of a chunk in
+    lockstep: walker t walks blocks[t, :lens[t]] from tables[t], its table
+    in 64 little-endian words, 4 words a group: in each word the SWAR
+    zero-byte test on word ^ (byte * 0x01010101), the bits that move
+    ((2 * lowest bit - 1) while the byte is not yet found), the funnel shift
+    from the word before; the rank from the popcount of the moved bits; the
+    warp stops after the group where its last walker found its byte."""
+    u32 = np.uint32
+    w = np.ascontiguousarray(tables).view(np.uint32).reshape(len(tables), 64).copy()
+    out = np.zeros(blocks.shape, np.uint8)
+    for i in range(blocks.shape[1]):
+        ch = blocks[:, i].astype(np.uint32)
+        c4 = ch * u32(0x01010101)
+        prev, alive, moved = ch << u32(24), np.full(len(w), 0xFFFFFFFF, np.uint32), np.zeros(len(w), np.uint32)
+        for g in range(16):
+            for k in range(4 * g, 4 * g + 4):
+                cur = w[:, k].copy()
+                x = cur ^ c4
+                z = (x - u32(0x01010101)) & ~x & u32(0x80808080)
+                low = z & (u32(0) - z)
+                move = (u32(2) * low - u32(1)) & alive
+                shifted = (cur << u32(8)) | (prev >> u32(24))  # __funnelshift_l(prev, cur, 8)
+                w[:, k] = (shifted & move) | (cur & ~move)
+                moved += _popc(move)
+                alive &= ((low - u32(1)).view(np.int32) >> 31).view(np.uint32)
+                prev = cur
+            if not alive.any():
+                break
+        live = i < lens
+        out[:, i] = np.where(live, moved // 8 - 1, 0)
     return out
 
 
-@pytest.mark.parametrize("case", ["ragged chunks", "cycle of 256", "zipf 256"])
+@pytest.mark.parametrize("case", ["ragged chunks", "cycle of 256", "zipf 256", "permutations of 256"])
 def test_lane_walk_model_matches_the_host(case):
-    chunk = 256
-    data = (_alphabet(256, 700) if case == "zipf 256" else mtf_edge_cases()[case])[: 3 * chunk - 40]
+    for chunk in (128, 1024):
+        data = (_alphabet(256, 3000) if case == "zipf 256" else mtf_edge_cases()[case])[: 3 * chunk - 40]
+        arr = np.frombuffer(data, np.uint8)
+        sub = chunk // tt.WALKERS
+        tables = tt.walker_tables(_t(data), chunk).numpy()
+        got = []
+        for c in range(len(tables)):
+            part = arr[c * chunk : (c + 1) * chunk]
+            blocks = np.zeros((tt.WALKERS, sub), np.uint8)
+            blocks.reshape(-1)[: len(part)] = part
+            lens = np.clip(len(part) - sub * np.arange(tt.WALKERS), 0, sub)
+            got.append(_walker_walk(blocks, lens, tables[c]).reshape(-1)[: len(part)])
+        np.testing.assert_array_equal(np.concatenate(got), _host(data))
+
+
+@pytest.mark.parametrize("chunk", [128, 1024, 4096])
+@pytest.mark.parametrize("case", ["ragged chunks", "runs across sub-chunks", "one past a chunk", "zipf 256"])
+def test_walker_last_positions_match_a_direct_count(case, chunk):
+    data = _alphabet(256, 9000) if case == "zipf 256" else mtf_edge_cases()[case]
     arr = np.frombuffer(data, np.uint8)
-    tables = tt.entry_tables(tt.entry_positions(tt.chunk_last_positions(_t(data), chunk))).numpy()
-    got = np.concatenate([_lane_walk(arr[c * chunk : (c + 1) * chunk], tables[c]) for c in range(len(tables))])
-    np.testing.assert_array_equal(got, _host(data))
+    sub = chunk // tt.WALKERS
+    C = -(-len(arr) // chunk)
+    want = np.full((C * tt.WALKERS, 256), -1, np.int64)
+    pos = np.arange(len(arr))
+    np.maximum.at(want, (pos // sub, arr), pos)
+    got = tt.walker_last_positions(_t(data), chunk)
+    assert got.shape == (C, tt.WALKERS, 256) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().reshape(-1, 256), want)
+
+
+@pytest.mark.parametrize("chunk", [128, 1024])
+@pytest.mark.parametrize("case", ["ragged chunks", "cycle of 256", "runs across sub-chunks", "permutations of 256",
+                                  "zipf 256"])
+def test_walker_tables_match_a_sequential_walk(case, chunk):
+    data = _alphabet(256, 5000) if case == "zipf 256" else mtf_edge_cases()[case]
+    arr = np.frombuffer(data, np.uint8)
+    sub = chunk // tt.WALKERS
+    got = tt.walker_tables(_t(data), chunk).numpy().reshape(-1, 256)
+    want = _walk_tables(arr, sub)  # one table a sub-chunk start inside the data
+    np.testing.assert_array_equal(got[: len(want)], want)
+
+
+def _bitonic_tables(keys: np.ndarray) -> np.ndarray:
+    """J3's bitonic network (csrc/mtf.cu, step 3) over [C, 256] distinct
+    keys, lane by lane: lane l holds keys 8l .. 8l + 7; a stride of 8 or
+    more pairs lanes l and l ^ (stride / 8) through a shuffle, a smaller one
+    pairs j and j | stride in the lane. Returns the symbols in sorted key
+    order, [C, 256]."""
+    key = keys.reshape(-1, 32, 8).astype(np.uint64)
+    sym = np.broadcast_to(np.arange(256).reshape(32, 8), key.shape).copy()
+    lane = np.arange(32)[:, None]
+    i = 8 * lane + np.arange(8)[None, :]
+    for ls in range(1, 9):
+        size = 1 << ls
+        for st in range(ls - 1, -1, -1):
+            stride = 1 << st
+            if stride >= 8:
+                partner = np.arange(32) ^ (stride >> 3)
+                ok, os_ = key[:, partner], sym[:, partner]
+                want_min = ((i & size) == 0) == ((i & stride) == 0)
+                take = np.where(want_min, ok < key, ok > key)
+                key, sym = np.where(take, ok, key), np.where(take, os_, sym)
+            else:
+                for j in range(8):
+                    if j & stride:
+                        continue
+                    jj = j | stride
+                    up = ((8 * np.arange(32) + j) & size) == 0
+                    swap = np.where(up, key[:, :, j] > key[:, :, jj], key[:, :, j] < key[:, :, jj])
+                    for a in (key, sym):
+                        a[:, :, j], a[:, :, jj] = np.where(swap, a[:, :, jj], a[:, :, j]), np.where(swap, a[:, :, j], a[:, :, jj])
+    return sym.reshape(-1, 256)
+
+
+@pytest.mark.parametrize("case", ["ragged chunks", "cycle of 256", "zipf 256", "permutations of 256", "random keys"])
+def test_bitonic_model_gives_the_entry_tables(case):
+    if case == "random keys":
+        keys = np.random.default_rng(8).permutation(1 << 20)[: 4 * 256].reshape(4, 256)
+        np.testing.assert_array_equal(_bitonic_tables(keys), np.argsort(keys, 1))
+        return
+    data = _alphabet(256, 5000) if case == "zipf 256" else mtf_edge_cases()[case]
+    entry = tt.entry_positions(tt.chunk_last_positions(_t(data), 512)).numpy().astype(np.int64)
+    sym = np.arange(256)
+    keys = np.where(entry >= 0, 0x7FFFFFFF - entry, 0x80000000 + sym)  # csrc/mtf.cu's keys
+    np.testing.assert_array_equal(_bitonic_tables(keys), tt.entry_tables(torch.from_numpy(entry).to(torch.int32)).numpy())
+
+
+def _warp_tables(part: np.ndarray, entry_table: np.ndarray, chunk: int) -> np.ndarray:
+    """J3's steps 2 and 4 (csrc/mtf.cu) for one chunk, lane by lane: each
+    walker's D_t by a backward scan of its sub-chunk with a seen set, then
+    walker t + 1's table from walker t's: D_t to the front, the other
+    symbols of lane l's table bytes 8l .. 8l + 7 placed at |D_t| plus the
+    lanes' exclusive scan of their counts."""
+    sub = chunk // tt.WALKERS
+    lists = []
+    for t in range(tt.WALKERS):
+        seen, d = set(), []
+        for ch in part[t * sub : (t + 1) * sub][::-1].tolist():
+            if ch not in seen:
+                seen.add(ch)
+                d.append(ch)
+        lists.append(d)
+    cur = entry_table.astype(np.int64)
+    out = [cur]
+    for t in range(tt.WALKERS - 1):
+        d = np.array(lists[t], np.int64)
+        nxt = np.full(256, -1, np.int64)
+        nxt[: len(d)] = d
+        stay = ~np.isin(cur, d).reshape(32, 8)
+        cnt = stay.sum(1)
+        before = np.cumsum(cnt) - cnt
+        for lane in range(32):
+            kept = cur[8 * lane : 8 * lane + 8][stay[lane]]
+            nxt[len(d) + before[lane] : len(d) + before[lane] + len(kept)] = kept
+        assert (nxt >= 0).all()
+        cur = nxt
+        out.append(cur)
+    return np.stack(out).astype(np.uint8)
+
+
+@pytest.mark.parametrize("chunk", [128, 1024])
+@pytest.mark.parametrize("case", ["ragged chunks", "runs across sub-chunks", "permutations of 256", "one past a chunk"])
+def test_warp_table_pass_model_matches_walker_tables(case, chunk):
+    data = mtf_edge_cases()[case][: 3 * chunk + 50]
+    arr = np.frombuffer(data, np.uint8)
+    entry = tt.entry_tables(tt.entry_positions(tt.chunk_last_positions(_t(data), chunk))).numpy()
+    want = tt.walker_tables(_t(data), chunk).numpy()
+    for c in range(len(entry)):
+        np.testing.assert_array_equal(_warp_tables(arr[c * chunk : (c + 1) * chunk], entry[c], chunk), want[c])
+
+
+@pytest.mark.parametrize("sub", [4, 32, 128])
+@pytest.mark.parametrize("sigma", [26, 256])
+def test_mtf_plain_at_the_walkers_grain_matches_jax(sigma, sub):
+    """mtf_encode_plain with chunks of a walker's sub-chunk (chunks of 128,
+    1024 and 4096 over 32 walkers) against the JAX scan and ops/mtf.py."""
+    data = _alphabet(sigma, 3 * JAX_CHUNK + 555, seed=9)
+    arr = np.frombuffer(data, np.uint8)
+    padded = np.zeros(JAX_LEN, np.uint8)
+    padded[: len(arr)] = arr
+    want = np.asarray(JAX_MTF(jnp.asarray(padded), JAX_CHUNK))[: len(arr)]
+    np.testing.assert_array_equal(jax_mtf_encode_host(arr), want)
+    np.testing.assert_array_equal(tt.mtf_encode_plain(_t(data), sub).numpy(), want)
 
 
 def test_chunk_limits_match_mtf_cu():

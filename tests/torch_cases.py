@@ -378,10 +378,26 @@ def table_rows() -> dict:
 INT32_ROWS = [n for n, h in table_rows().items() if h.max() < 1 << 21]
 
 
+def _tiled_spans(rng, n_spans: int, widths, gap: int = 6) -> list:
+    """n_spans disjoint spans in increasing order, span k of widths[k]
+    blocks, 0 to `gap` blocks apart."""
+    spans, at = [], 0
+    for k in range(n_spans):
+        at += int(rng.integers(0, gap + 1))
+        spans.append((at, at + int(widths[k])))
+        at += int(widths[k])
+    return spans
+
+
 def esp_edge_spans(device="cpu") -> dict:
     """Kernel I's edge cases, name -> (lens, typs, ws, we, ns) int32 tensors
-    on `device` (tests/test_torch_esp.py, chip_smoke.py phase 12): spans of 1
-    to 260 blocks, all ones, alternating types, and no spans at all."""
+    on `device` (tests/test_torch_esp.py, tests/test_torch_cuda.py,
+    chip_smoke.py phase 12): spans of 1 to 260 blocks, all ones, alternating
+    types, no spans at all and spans past ns; and for kernel I's warps,
+    which stage 32 spans each in shared memory (csrc/esp.cu: SLOT, CAP):
+    spans of width 1, ns at the static bound size // 7 + 1 with the last
+    warp partly filled, a warp with one span wider than the slot, and a
+    warp whose spans fill more than the warp's staging capacity."""
     rng = np.random.default_rng(12)
     cases = {}
     for width in (1, 2, 3, 7, 8, 129, 200, 260):
@@ -393,14 +409,33 @@ def esp_edge_spans(device="cpu") -> dict:
     cases["alternating types, lens"] = (np.tile(np.array([1, 3, 2], np.int32), 100),
                                        np.tile(np.array([3, 2, 1, 2], np.int32), 75), [(0, 150), (157, 300)])
     cases["no spans"] = (np.full(64, 2, np.int32), np.full(64, 2, np.int32), [])
+
+    def blocks(size):
+        return rng.choice([1, 2, 3], size, p=[0.4, 0.4, 0.2]).astype(np.int32), rng.integers(1, 4, size).astype(np.int32)
+
+    lens, typs = blocks(700)
+    cases["spans past ns"] = (lens, typs, _tiled_spans(rng, 40, rng.integers(1, 8, 40)), 0)
+    lens, typs = blocks(1000)
+    cases["spans of width 1"] = (lens, typs, _tiled_spans(rng, 120, np.ones(120, np.int64)))
+    S = 35000 // 7 + 1  # 5001 spans: 156 full warps and one of 9
+    lens, typs = blocks(35000)
+    cases["ns at the static bound"] = (lens, typs, _tiled_spans(rng, S, rng.integers(1, 7, S), gap=3))
+    lens, typs = blocks(1500)
+    wid = rng.integers(1, 9, 40)
+    wid[13] = 100  # wider than the slot: its lane walks device memory
+    cases["one span wider than the slot"] = (lens, typs, _tiled_spans(rng, 40, wid))
+    lens, typs = blocks(3000)
+    cases["past a warp's staging capacity"] = (lens, typs, _tiled_spans(rng, 36, np.full(36, 64)))
     out = {}
-    for name, (lens, typs, spans) in cases.items():
+    for name, (lens, typs, spans, *ns) in cases.items():
         S = len(lens) // 7 + 1
+        assert len(spans) <= S and all(b <= len(lens) for _, b in spans)
         ws = np.zeros(S, np.int32)
         we = np.zeros(S, np.int32)
         for k, (a, b) in enumerate(spans):
             ws[k], we[k] = a, b
-        out[name] = tuple(torch.from_numpy(x).to(device) for x in (lens, typs, ws, we, np.array([len(spans)], np.int32)))
+        n = np.array(ns or [len(spans)], np.int32)
+        out[name] = tuple(torch.from_numpy(x).to(device) for x in (lens, typs, ws, we, n))
     return out
 
 
@@ -409,8 +444,15 @@ def mtf_edge_cases(chunk: int = 4096) -> dict:
     tests/test_torch_cuda.py, chip_smoke.py phase 16): empty, one byte, less
     than a chunk, a length that is no multiple of the chunk, one repeated
     byte, and a cycle of all 256 values (every rank 255 after the first
-    lap)."""
+    lap); and for J3's walkers (a sub-chunk of chunk / 32 bytes each): less
+    than a sub-chunk, one byte past a chunk, runs of one byte across every
+    sub-chunk boundary, and permutations of all 256 values (each walker's
+    sub-chunk holds all 256 at chunks of 8192)."""
     rng = np.random.default_rng(13)
+    sub = chunk // 32
+    runs = rng.integers(0, 26, 3 * chunk + 9).astype(np.uint8) + 97
+    for b in range(sub, len(runs), sub):
+        runs[b - 5 : b + 6] = 122
     return {
         "empty": b"",
         "one byte": b"\xff",
@@ -418,4 +460,8 @@ def mtf_edge_cases(chunk: int = 4096) -> dict:
         "ragged chunks": bytes(rng.integers(0, 26, 3 * chunk + 77).astype(np.uint8) + 97),
         "one repeated byte": b"z" * (2 * chunk + 5),
         "cycle of 256": bytes(range(256)) * (chunk // 64 + 3),
+        "less than a sub-chunk": english(sub - 1),
+        "one past a chunk": english(chunk + 1, seed=2),
+        "runs across sub-chunks": runs.tobytes(),
+        "permutations of 256": np.concatenate([rng.permutation(256) for _ in range(4 * chunk // 256 + 3)]).astype(np.uint8).tobytes(),
     }

@@ -255,16 +255,19 @@ def use_lcpcomp_decode_device(n: int, device: torch.device) -> bool:
 RLE_MIN_N = 16 << 20
 
 # Smallest input whose MTF encode runs on a CUDA device (kernel J,
-# ops/mtf_cuda.py) when TDC_DEVICE_MTF is unset. Same sweep and card:
+# ops/mtf_cuda.py) when TDC_DEVICE_MTF is unset. Measured by the same
+# sweep on the same card in three later runs (two from 4 KiB):
 # compressors/simple.mtf_encode with the gate forced each way, the card's
 # side the bytes up, kernel J and the ranks back, the host's the C++ table
 # walk (tdc_mtf_encode). Milliseconds, card against host, over the runs:
-# 16 KiB 0.65-0.66 against 0.36-0.48, 64 KiB 0.67-0.69 against 1.5-1.6,
-# 256 KiB 0.79-0.83 against 6.1-6.3, 1 MiB 1.0-1.1 against 26-32, 4 MiB
-# 1.5-1.6 against 89-97, 16 MiB 5.5-5.9 against 401-479: the card wins from
-# 64 KiB on, by 2.2-2.3x there and 73-81x at 16 MiB. (The JAX package's 4
-# MiB came from a v5e.)
-MTF_MIN_N = 64 << 10
+# 4 KiB 0.211-0.224 against 0.137-0.176, 8 KiB 0.177-0.211 against
+# 0.250-0.260, 16 KiB 0.149-0.212 against 0.309-0.479, 32 KiB 0.15-0.23
+# against 0.61-0.96, 64 KiB 0.16-0.25 against 1.2-1.8, 256 KiB 0.20-0.33
+# against 4.7-7.1, 1 MiB 0.39-0.65 against 19-27, 4 MiB 0.93-1.64 against
+# 76-104, 16 MiB 3.8-4.1 against 348-361: the host wins at 4 KiB (the card
+# 0.65-0.79x), the card from 8 KiB on, by 1.23-1.41x there, 2.1-2.3x at 16
+# KiB and 84-94x at 16 MiB. (The JAX package's 4 MiB came from a v5e.)
+MTF_MIN_N = 8 << 10
 
 
 def use_rle_device(n: int, device: torch.device) -> bool:

@@ -1,9 +1,10 @@
-"""Kernel I: the ESP adjust pass's queue machine, one thread a span.
+"""Kernel I: the ESP adjust pass's queue machine, a lane a span.
 
 `esp_adjust_windows` runs the 3-slot queue of compressors/esp.py:
 _adjust_blocks (the reference's BlockAdjust.hpp:38-131) over each span of a
-round's blocks, in place: CUDA tensors go to kernel I (csrc/esp.cu, one
-thread a span, the queue in registers, one launch a round), CPU tensors to
+round's blocks, in place: CUDA tensors go to kernel I (csrc/esp.cu: a
+persistent grid, a warp a group of 32 spans staged in shared memory, a lane
+a span, the queue in registers, one launch a round), CPU tensors to
 `esp_adjust_windows_plain`, the JAX package's _sim_window
 (tudocomp_tpu/ops/esp_jax.py:87-199) batched over all spans in torch, with
 masked steps until every span drains. The spans come from
@@ -20,6 +21,8 @@ from .bitpack_cuda import on_cuda
 __all__ = ["esp_adjust_windows", "esp_adjust_windows_plain"]
 
 _I32 = torch.int32
+SLOT = 64  # csrc/esp.cu: the widest span a warp stages in shared memory
+CAP = 1024  # csrc/esp.cu: the blocks a warp stages; wider or later spans walk device memory
 
 
 def _check(lens, typs, ws, we, ns) -> None:

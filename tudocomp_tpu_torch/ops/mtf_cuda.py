@@ -3,9 +3,9 @@
 `mtf_encode_chunks` gives the move-to-front ranks of a uint8 tensor
 (MTFCompressor.hpp:17-29, the host's tdc_mtf_encode): a CUDA tensor goes
 to kernel J (csrc/mtf.cu: J1 each chunk's last positions, J2 their
-exclusive running max, J3 each chunk's walk from its entry table; three
-launches, one count), a CPU tensor to ops/transforms_torch.py:
-mtf_encode_plain.
+exclusive running max, J3 a warp a chunk, its 32 lanes walking a sub-chunk
+each from their own entry tables; three launches, one count), a CPU tensor
+to ops/transforms_torch.py:mtf_encode_plain.
 """
 
 from __future__ import annotations
@@ -18,12 +18,12 @@ from .transforms_torch import CHUNK, SIGMA, mtf_encode_plain
 
 __all__ = ["mtf_encode_chunks"]
 
-MAX_CHUNK = 8192  # csrc/mtf.cu: a warp's chunk lies in shared memory beside its table
+MAX_CHUNK = 8192  # csrc/mtf.cu: a warp's chunk lies in shared memory, a sub-chunk of at most 256 a lane
 
 
 def mtf_encode_chunks(data: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
     """[n] u8 -> [n] u8 MTF ranks, on data's device; chunk: bytes a warp
-    walks, a multiple of 128 up to MAX_CHUNK."""
+    walks (chunk / 32 a lane), a multiple of 128 up to MAX_CHUNK."""
     if data.dim() != 1 or data.dtype != torch.uint8:
         raise ValueError("expected a 1-d uint8 tensor")
     if chunk < 128 or chunk > MAX_CHUNK or chunk % 128:

@@ -15,9 +15,15 @@ most recent first, then the unseen ones in byte order. So every chunk of
 CHUNK bytes can start from its own entry table: J1 finds each symbol's last
 position in each chunk (`chunk_last_positions`), J2 takes their exclusive
 running max over the chunks (`entry_positions`), and each chunk's walk
-starts from the table those positions rank to (`entry_tables`). The plain
-version uses the same entry positions as each chunk's carry and the closed
-form inside the chunk, a batch of chunks at a time.
+starts from the table those positions rank to (`entry_tables`). Inside a
+chunk kernel J runs WALKERS walkers, each over a sub-chunk of chunk /
+WALKERS bytes from its own entry table: `walker_last_positions` gives each
+symbol's last position in each sub-chunk, and `walker_tables` the walkers'
+entry tables, walker t + 1's being MTF's table after sub-chunk t, the
+closed form's: sub-chunk t's symbols by their last position there, latest
+first, then walker t's other symbols in their order. The plain version uses
+the chunks' entry positions as each chunk's carry and the closed form
+inside the chunk, a batch of chunks at a time.
 """
 
 from __future__ import annotations
@@ -36,10 +42,13 @@ __all__ = [
     "mtf_encode_plain",
     "rle_runs_device",
     "upload",
+    "walker_last_positions",
+    "walker_tables",
 ]
 
 SIGMA = 256
 CHUNK = 4096  # bytes a chunk: kernel J's warp walks one (csrc/mtf.cu takes 128-8192, a multiple of 128)
+WALKERS = 32  # sub-chunks a chunk: a lane of kernel J's warp walks one
 PLAIN_ROWS = 1 << 14  # positions the plain version holds [rows, 256] tables for at once
 
 _I32 = torch.int32
@@ -104,6 +113,33 @@ def entry_tables(entry: torch.Tensor) -> torch.Tensor:
     """J3's start: [C, 256] u8, the MTF table at the start of each chunk
     (position p holds the symbol of rank p), from J2's entry positions."""
     return torch.argsort(_keys(entry), dim=1).to(_U8)
+
+
+def walker_last_positions(data: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """[C, WALKERS, 256] int32: the last position (in data) of each symbol in
+    each walker's sub-chunk of chunk / WALKERS bytes, -1 where it lacks it
+    (and for the sub-chunks past the end of data)."""
+    n = data.numel()
+    C = -(-n // chunk)
+    last = chunk_last_positions(data, chunk // WALKERS)
+    pad = torch.full((C * WALKERS - last.shape[0], SIGMA), -1, dtype=_I32, device=data.device)
+    return torch.cat([last, pad]).view(C, WALKERS, SIGMA)
+
+
+def walker_tables(data: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """J3's walkers' entry tables, [C, WALKERS, 256] u8 (position p holds the
+    symbol of rank p): walker 0's the chunk's entry table, walker t + 1's
+    sub-chunk t's symbols by their last position there, latest first, then
+    walker t's other symbols in their order."""
+    cur = entry_tables(entry_positions(chunk_last_positions(data, chunk))).to(torch.int64)
+    last = walker_last_positions(data, chunk).to(torch.int64)
+    pos = torch.arange(SIGMA, dtype=torch.int64, device=data.device)
+    tables = [cur]
+    for t in range(WALKERS - 1):
+        lt = torch.gather(last[:, t], 1, cur)  # the last position of the symbol at each table position
+        cur = torch.gather(cur, 1, torch.argsort(torch.where(lt >= 0, -lt, (1 << 40) + pos), dim=1))
+        tables.append(cur)
+    return torch.stack(tables, 1).to(_U8)
 
 
 def mtf_encode_plain(data: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
