@@ -191,6 +191,26 @@ line each:
                     device.RLE_MIN_N and MTF_MIN_N: each device stage with
                     its copies against its host stage, on prefixes of 4
                     KiB to 16 MiB of the English text, best of 2-3.
+ 18. matrix tail   the ids of lz78u, lfs_comp and lfs2 (host strategies
+                    over the suffix stack that TextDS builds on the card)
+                    and the nested blockwise: (a) lz78u,
+                    lfs_comp(computing_strat=st) and (...=sim_st) on 1 MiB
+                    of the English text, lfs_comp (esa) and lfs2 on 256 KiB
+                    + 1, through driver.compress / decompress(device="cuda"):
+                    each container equals the host path's, both decoders
+                    return the input, kernel H launched on each, and the
+                    StatPhase stages card against host (suffix stack,
+                    strategy, coding, decode); (b) every one of the 66 ids
+                    and three nested blockwise ids (inner blocks short) on
+                    4 KiB on the card against the host path; (c)
+                    blockwise(blockwise(encode(huff)),bs=4194304) against
+                    the flat blockwise(encode(huff)) on 64 MiB of zipf(1.3):
+                    the inner payloads equal the flat ones, the card's
+                    decode returns the input, A-D's launches and each
+                    wall time; (d) `python -m tudocomp_tpu_torch -a lz78u
+                    -s` on a 300 KiB file: the container equals the host
+                    path's and the JSON's phases carry the card's memory
+                    (devMemOff, devMemPeak, devMemFinal); the phase's seconds.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
 its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
@@ -275,6 +295,25 @@ MTF_FEED = {"mtf": None, "rle:mtf:encode(vbyte)": "rle", "bwt:rle:mtf:encode(huf
             "chain(bwt, chain(rle, chain(mtf, encode(huff))))": "bwt:rle"}
 TRANSFORM_SWEEP = tuple(k << 10 for k in (4, 8, 16, 32, 64, 256, 1024, 4096, 16384))  # behind RLE_MIN_N, MTF_MIN_N
 MTF_CHUNKS = (1024, 2048, 4096, 8192)  # kernel J's chunk sizes timed in phase 16
+# phase 18's ids of the suffix-tree families -> bytes of synth_english (seed
+# 7) they run on: 1 MiB, or 256 KiB + 1 for the two slowest host strategies
+# (the sentinel makes it 256 KiB + 2 for TextDS, past device.SA_MIN_N
+# whichever length the gate were to see)
+TAIL_ALGOS = {"lz78u": MIB, "lfs_comp(computing_strat=st)": MIB, "lfs_comp(computing_strat=sim_st)": MIB,
+              "lfs_comp": (256 << 10) + 1, "lfs2": (256 << 10) + 1}
+# each family's two StatPhase spans: the one that builds the suffix stack
+# (Construct SA/ISA/LCP inside it) and the rules or the tree, and the one
+# that codes (lz78u's factorization walk codes as it goes)
+TAIL_SPANS = {"lz78u": ("construct suffix tree", "factorize"), "lfs_comp": ("computing lrfs", "encoding input"),
+              "lfs2": ("Computing LRF", "Encoding Comp")}
+SUFFIX_STACK_SPANS = ("Construct SA", "Construct ISA", "Construct LCP Array")
+TAIL_SMALL = 4 << 10  # every new id on 4 KiB of English
+NESTED_SMALL = ("blockwise(blockwise(encode(huff),bs=1000),bs=3000)",
+                "blockwise(blockwise(encode(huff),bs=1000,shared=1),bs=3000)",
+                "blockwise(blockwise(lzw(coder=bit),bs=1000),bs=3000)")
+NESTED_ALGO = "blockwise(blockwise(encode(huff)),bs=4194304)"  # 16 inner blocks of 256 KiB an outer block
+NESTED_BYTES = 64 * MIB
+CLI_BYTES = 300 << 10  # phase 18's file for `python -m tudocomp_tpu_torch -a lz78u -s`: its SA on the card
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
 LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
 LZW_PLAIN_PREFIX = 1 << 16  # bytes of those blocks the plain version steps through
@@ -1407,6 +1446,15 @@ def main() -> int:
     for table, new in zip((errs, timing), transforms_kernel_phase(english, dev, gpu)):
         table.update(new)
     launches["mtf_encode"] = transforms_roundtrip_phase(english, dev, gpu)
+    del english
+    torch.cuda.empty_cache()
+
+    # 18. the matrix tail: lz78u, lfs_comp, lfs2, the nested blockwise, the CLI
+    launches_h, launches_nested = matrix_tail_phase(gpu)
+    launches["plcp_segments"] += launches_h
+    timing["plcp_segments"]["launches_by_shape"]["matrix tail"] = launches_h
+    for name, n in launches_nested.items():
+        timing[name]["launches_nested_blockwise"] = n
 
     print(gpu)
     emit({"kernels": [
@@ -3040,6 +3088,156 @@ def transforms_roundtrip_phase(english, dev, gpu) -> int:
           "gates": {"RLE_MIN_N": tdev.RLE_MIN_N, "MTF_MIN_N": tdev.MTF_MIN_N},
           "kernel_J_launches": launched_all, "card": gpu})
     return launched_all
+
+
+def tail_stages(algo: str, data: bytes, device: str) -> tuple:
+    """One driver.compress of a phase 18 id on `device` under a root
+    StatPhase: the suffix stack's seconds (Construct SA, ISA, LCP), the
+    strategy's (the rest of the family's first span: the rules, or lz78u's
+    suffix tree), the coding's (its second span) and the whole encode's,
+    the raw spans, and the container."""
+    from tudocomp_tpu_torch.driver import compress
+
+    spans, container = phase_spans(lambda: compress(algo, data, device=device))
+    build, code = TAIL_SPANS[algo.split("(")[0]]
+    stack = sum(spans.get(f"{build}/{name}", 0.0) for name in SUFFIX_STACK_SPANS)
+    stages = {"suffix_stack_s": stack, "strategy_s": spans[build] - stack, "coding_s": spans[code],
+              "encode_s": spans["total"]}
+    return stages, spans, container
+
+
+def matrix_tail_phase(gpu) -> tuple:
+    """Phase 18: the suffix-tree families and the nested blockwise on the
+    card against the port's host path, and the CLI's --stats on the card.
+    Returns kernel H's launches in (a) and A-D's in (c)'s nested run."""
+    import json as _json
+    import tempfile
+
+    import torch
+
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.driver import compress, decompress
+    from tudocomp_tpu_torch.parallel.blocks import unframe_streams
+
+    t_phase = time.perf_counter()
+    english = english_bytes(MIB).tobytes()
+
+    # (a) each family at its size: containers, decodes, kernel H, stages;
+    # first one suffix stack on the card, so that no stage carries the
+    # card's first use of the suffix array's and kernel H's launches
+    import numpy as np
+
+    from tudocomp_tpu_torch.ds.textds import TextDS
+
+    warm = TextDS(np.frombuffer(english[: 256 << 10] + b"\0", np.uint8).copy(), device="cuda")
+    warm.require_isa(), warm.require_lcp()
+    launched_h = 0
+    for algo, n in TAIL_ALGOS.items():
+        data = english[:n]
+        kernels.reset_counts()
+        card, card_spans, container = tail_stages(algo, data, "cuda")
+        torch.cuda.synchronize()
+        launched = kernels.counts()["plcp_segments"]
+        if launched == 0:
+            raise AssertionError(f"{algo}: kernel H never launched")
+        launched_h += launched
+        back, card["decode_s"] = synced(lambda: decompress(container, device="cuda"))
+        with host_path():
+            host, host_spans, ref = tail_stages(algo, data, "cpu")
+            t0 = time.perf_counter()
+            host_back = decompress(ref, device="cpu")
+            host["decode_s"] = time.perf_counter() - t0
+        if container != ref:
+            raise AssertionError(f"{algo}: container differs from the host path's")
+        if back != data or host_back != data:
+            raise AssertionError(f"{algo}: a decode differs from the input")
+        no_jax()
+        emit({"phase": "matrix tail", "part": "a", "algo": algo, "bytes": n, "container_bytes": len(container),
+              "ratio_pct": 100.0 * len(container) / n, "kernel_H_launches": launched,
+              "stages_card": card, "stages_host": host, "spans_card": card_spans, "spans_host": host_spans,
+              "card": gpu})
+
+    # (b) every new id and the nested ids on 4 KiB, on the card
+    small = english[:TAIL_SMALL]
+    tail_ids = [f"lz78u(comp=streaming(string_coder={s}), coder={c})"
+                for s in ("ascii", "bit", "gamma", "delta") for c in ("ascii", "bit", "gamma", "delta")]
+    tail_ids += [f"lfs_comp(computing_strat={st}, coding_strat=lfs_enocde_strat(lfs_lit_coder={lit}, "
+                 f"lfs_len_coder={ln}))" for st in ("esa", "st", "bst", "sim_st")
+                 for lit in ("bit", "ascii", "huff") for ln in ("ascii", "bit", "gamma", "delta")]
+    tail_ids += ["lfs2", "lfs2bst"]
+    t0 = time.perf_counter()
+    for algo in (*tail_ids, *NESTED_SMALL):
+        container = compress(algo, small, device="cuda")
+        if container != ref_compress(algo, small):
+            raise AssertionError(f"{algo} at 4 KiB: container differs from the host path's")
+        if decompress(container, device="cuda") != small or ref_decompress(container) != small:
+            raise AssertionError(f"{algo} at 4 KiB: a decode differs from the input")
+    no_jax()
+    emit({"phase": "matrix tail", "part": "b", "ids": len(tail_ids) + len(NESTED_SMALL), "bytes": TAIL_SMALL,
+          "seconds": time.perf_counter() - t0, "card": gpu})
+
+    # (c) nested against flat on 64 MiB of zipf(1.3)
+    data = zipf_bytes(5, NESTED_BYTES).tobytes()
+    runs = {}
+    for algo in (ALGO, NESTED_ALGO):
+        kernels.reset_counts()
+        container, enc_s = synced(lambda: compress(algo, data, device="cuda", raw=True))
+        enc_launches = kernels.counts()
+        kernels.reset_counts()
+        back, dec_s = synced(lambda: decompress(container, device="cuda", id_string=algo, raw=True))
+        dec_launches = kernels.counts()
+        if back != data:
+            raise AssertionError(f"{algo}: the card's decode differs from the input")
+        runs[algo] = {"container": container, "encode_s": enc_s, "decode_s": dec_s,
+                      "launches": {k: enc_launches[k] for k in HUFF_KERNELS[:3]},
+                      "decode_launches": dec_launches["decode_payloads"]}
+    flat_bs, flat = unframe_streams(runs[ALGO]["container"])
+    outer_bs, outer = unframe_streams(runs[NESTED_ALGO]["container"])
+    inner = [p for o in outer for p in unframe_streams(o)[1]]
+    if (flat_bs, flat) != (BS, inner) or outer_bs != 4 * MIB:
+        raise AssertionError("the nested blockwise's inner payloads differ from the flat blockwise's")
+    nested_launches = {**runs[NESTED_ALGO]["launches"], "decode_payloads": runs[NESTED_ALGO]["decode_launches"]}
+    if not all(nested_launches.values()):
+        raise AssertionError(f"the nested blockwise did not launch every kernel: {nested_launches}")
+    emit({"phase": "matrix tail", "part": "c", "bytes": NESTED_BYTES, "outer_blocks": len(outer),
+          "inner_blocks": len(inner), **{
+              label: {k: v for k, v in runs[algo].items() if k != "container"} | {
+                  "container_bytes": len(runs[algo]["container"])}
+              for label, algo in (("flat", ALGO), ("nested", NESTED_ALGO))}, "card": gpu})
+    del data, runs, back, flat, outer, inner
+    torch.cuda.empty_cache()
+
+    # (d) the command line with --stats on the card
+    tmp = tempfile.mkdtemp()
+    try:
+        src = os.path.join(tmp, "in.txt")
+        with open(src, "wb") as f:
+            f.write(english[:CLI_BYTES])
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tudocomp_tpu_torch", "-a", "lz78u", "-s", "matrix tail", src],
+                           capture_output=True, text=True, cwd=ROOT, timeout=600,
+                           env=dict(os.environ, PYTHONPATH=ROOT))
+        cli_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"the command line failed: {r.stderr[-2000:]}")
+        doc = _json.loads(r.stdout.splitlines()[-1])
+        stats = {s["key"]: int(s["value"]) for s in doc["data"]["stats"] if s["key"].startswith("devMem")}
+        if set(stats) != {"devMemOff", "devMemPeak", "devMemFinal"} or stats["devMemPeak"] <= 0:
+            raise AssertionError(f"the --stats document lacks the card's memory: {doc['data']['stats']}")
+        with open(src + ".tdc", "rb") as f:
+            if f.read() != ref_compress("lz78u", english[:CLI_BYTES]):
+                raise AssertionError("the command line's container differs from the host path's")
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    no_jax()
+    emit({"phase": "matrix tail", "part": "d", "bytes": CLI_BYTES, "seconds": cli_s, "meta": doc["meta"],
+          "root_memory": {k: doc["data"][k] for k in ("memOff", "memPeak", "memFinal")} | stats,
+          "phases": [c["title"] for c in doc["data"]["sub"]], "card": gpu})
+    emit({"phase": "matrix tail", "seconds": time.perf_counter() - t_phase, "kernel_H_launches": launched_h,
+          "nested_launches": nested_launches, "card": gpu})
+    return launched_h, nested_launches
 
 
 if __name__ == "__main__":

@@ -13,10 +13,12 @@ import pytest
 from tudocomp_tpu.base import Compressor
 from tudocomp_tpu.driver import compress as jax_compress, decompress as jax_decompress
 from tudocomp_tpu.meta import Meta
-from tudocomp_tpu.parallel.blocks import frame_streams, split_blocks
+from tudocomp_tpu.parallel.blocks import frame_streams, split_blocks, unframe_streams
 from tudocomp_tpu.registry import Registry
 from tudocomp_tpu_torch.driver import compress, decompress
 from tudocomp_tpu_torch.registry import TorchRegistry
+
+from .torch_cases import english
 
 
 class _SentinelCopy(Compressor):
@@ -85,7 +87,53 @@ def test_host_route_matches(algo, procs, monkeypatch):
     assert decompress(want, device="cpu") == data
 
 
-def test_blockwise_inner_cites_its_queue_item():
-    """A blockwise inner is not ported: the error names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4d\)"):
-        compress("blockwise(blockwise(encode(huff)))", _data(), device="cpu")
+# Nested blockwise: each outer block goes through the driver and takes the
+# inner blockwise's routing, the device runtime for encode(huff) (kernels
+# A-C and D's plain versions here, under TDC_DEVICE_HUFF=1, and always with
+# shared=1) or the host coder (=0), the batch parse for lzw (kernel F's plain
+# version under TDC_DEVICE_LZ78=1) or the host parse (=0). The bs=3000 and
+# bs=10000 ids leave the inner's last block short in every outer block.
+NESTED = {
+    "blockwise(blockwise(encode(huff),bs=4096),bs=16384)": "TDC_DEVICE_HUFF",
+    "blockwise(blockwise(encode(huff),bs=3000),bs=10000)": "TDC_DEVICE_HUFF",
+    "blockwise(blockwise(encode(huff),bs=3000,shared=1),bs=10000)": "TDC_DEVICE_HUFF",
+    "blockwise(blockwise(lzw,bs=1024),bs=8192)": "TDC_DEVICE_LZ78",
+    "blockwise(blockwise(lzw(coder=gamma),bs=3000),bs=10000)": "TDC_DEVICE_LZ78",
+}
+_NESTED_DATA = english(40 << 10, seed=12)
+_nested_jax = {}
+
+
+def _nested_want(algo):
+    """The JAX package's container of _NESTED_DATA and its own decode."""
+    if algo not in _nested_jax:
+        want = jax_compress(algo, _NESTED_DATA)
+        _nested_jax[algo] = want, jax_decompress(want)
+    return _nested_jax[algo]
+
+
+@pytest.mark.parametrize("gate", ["1", "0"])
+@pytest.mark.parametrize("algo", sorted(NESTED))
+def test_nested_blockwise_matches(algo, gate, monkeypatch):
+    want, jax_back = _nested_want(algo)
+    assert jax_back == _NESTED_DATA
+    monkeypatch.setenv(NESTED[algo], gate)
+    assert compress(algo, _NESTED_DATA, device="cpu") == want
+    assert decompress(want, device="cpu") == _NESTED_DATA
+
+
+def test_nested_blockwise_frames_the_flat_payloads():
+    """With the outer block a multiple of the inner one, the inner
+    containers hold the flat blockwise's payloads, in order."""
+    flat = compress("blockwise(encode(huff),bs=4096)", _NESTED_DATA, device="cpu", raw=True)
+    nested = compress("blockwise(blockwise(encode(huff),bs=4096),bs=16384)", _NESTED_DATA, device="cpu", raw=True)
+    outer_bs, outer = unframe_streams(nested)
+    assert outer_bs == 16384 and len(outer) == 3
+    inner = [p for o in outer for p in unframe_streams(o)[1]]
+    assert unframe_streams(flat) == (4096, inner)
+
+
+def test_nested_blockwise_raises_on_a_bad_inner():
+    """A failure inside an outer block is not swallowed."""
+    with pytest.raises(KeyError):
+        compress("blockwise(blockwise(nonexistent,bs=1024),bs=4096)", _NESTED_DATA, device="cpu")

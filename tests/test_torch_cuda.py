@@ -784,3 +784,57 @@ def test_transforms_roundtrip_on_the_card(dev, algo, monkeypatch):
         monkeypatch.setenv(var, "0")
     assert c == compress(algo, data, device="cpu")
     assert decompress(c, device="cpu") == data
+
+
+def test_cli_stats_on_the_card(dev, tmp_path):
+    """`python -m tudocomp_tpu_torch -a lz78u -s` on the card: the container
+    equals the host path's and the phases carry the card's memory."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = tmp_path / "in.txt"
+    src.write_bytes(tc.english(300 << 10, seed=5))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "tudocomp_tpu_torch", "-a", "lz78u", str(src), "-s"],
+                       capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=root), timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    doc = json.loads(r.stdout.splitlines()[-1])
+    keys = {s["key"] for s in doc["data"]["stats"]}
+    assert {"devMemOff", "devMemPeak", "devMemFinal"} <= keys
+    peak = int(next(s["value"] for s in doc["data"]["stats"] if s["key"] == "devMemPeak"))
+    assert peak > 300 << 10  # the text and its suffix array were on the card
+    os.environ["TDC_DEVICE_SA"] = "0"
+    try:
+        want = compress("lz78u", src.read_bytes(), device="cpu")
+    finally:
+        del os.environ["TDC_DEVICE_SA"]
+    assert (tmp_path / "in.txt.tdc").read_bytes() == want
+
+
+@pytest.mark.parametrize("algo", ["lz78u", "lfs_comp(computing_strat=sim_st)", "lfs2",
+                                  "blockwise(blockwise(encode(huff),bs=65536),bs=262144)"])
+def test_matrix_tail_on_the_card(dev, algo):
+    """The suffix-tree families with the suffix array, ISA and LCP from the
+    card (kernel H launched), and the nested blockwise through kernels A-D,
+    give the host path's bytes."""
+    data = tc.english((256 << 10) + 1, seed=6)
+    kernels.reset_counts()
+    got = compress(algo, data, device="cuda")
+    counts = kernels.counts()
+    if algo.startswith("blockwise"):
+        assert all(counts[k] > 0 for k in ("pack_blocks", "pack_bytes_blocks", "huffman_tables"))
+    else:
+        assert counts["plcp_segments"] > 0
+    assert decompress(got, device="cuda") == data
+    import os
+
+    env = ("TDC_DEVICE_SA", "TDC_DEVICE_HUFF")
+    os.environ.update({v: "0" for v in env})
+    try:
+        want = compress(algo, data, device="cpu")
+    finally:
+        for v in env:
+            del os.environ[v]
+    assert got == want

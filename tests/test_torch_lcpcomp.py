@@ -203,7 +203,7 @@ def test_device_arrays_of_textds(monkeypatch):
     assert TextDS(text, device=CPU, isa_provider="sparse_isa").device_arrays() is None
 
 
-def test_the_port_selects_227_of_the_matrix():
+def test_the_port_selects_293_of_the_matrix():
     reg = TorchRegistry("cpu")
     ids = compressor_matrix()
     selected = []
@@ -214,6 +214,6 @@ def test_the_port_selects_227_of_the_matrix():
             continue
         selected.append(algo)
     assert len(ids) == 293
-    assert len(selected) == 227
+    assert len(selected) == 293
     assert sum(a.startswith("lcpcomp(") for a in selected) == 74
     assert "encode(coder=sle)" in selected

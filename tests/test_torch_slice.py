@@ -106,7 +106,12 @@ def test_host_coder_path_matches(monkeypatch):
 
 @pytest.mark.parametrize("algo", ["blockwise(blockwise(encode(huff)))"])
 def test_unported_options_raise(algo, monkeypatch):
+    """The nested blockwise is ported; what stays unported is more than one
+    GPU: in a process group of two, its inner blocks reach the runtime,
+    which names the ROADMAP item."""
     monkeypatch.setenv("TDC_DEVICE_HUFF", "1")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compress(algo, b"abc", device="cpu")
 
@@ -186,6 +191,21 @@ _JAX_FREE = textwrap.dedent(
                          "repair(coder=huff)"):
                 c = compress(algo, data, device="cpu")
                 assert decompress(c, device="cpu") == data, (algo, gate)
+        # the suffix-tree families, the device suffix stack's plain
+        # versions then the host's, and a nested blockwise
+        for gate in ("1", "0"):
+            os.environ["TDC_DEVICE_SA"] = gate
+            for algo in ("lz78u", "lfs_comp(computing_strat=st)", "lfs2", "lfs2bst",
+                         "blockwise(blockwise(encode(huff),bs=1024),bs=4096)"):
+                c = compress(algo, data, device="cpu")
+                assert decompress(c, device="cpu") == data, (algo, gate)
+        import tempfile
+        from tudocomp_tpu_torch import __main__ as cli
+        out = os.path.join(tempfile.mkdtemp(), "fib.tdc")
+        assert cli.main(["-g", "fib(n=10)", "-a", "lz78u", "-o", out, "--device", "cpu"]) == 0
+        assert cli.main(["-d", out, "-o", out + ".out", "--device", "cpu"]) == 0
+        from tudocomp_tpu_torch.generators.generators import fibonacci_word
+        assert open(out + ".out", "rb").read() == fibonacci_word(10)
         from tudocomp_tpu_torch import probes
         assert probes.main(["6", "7", "8", "--device", "cpu"]) == 0
         print(len(ids), "ids")
@@ -303,7 +323,10 @@ def test_port_imports_nothing_of_the_jax_package():
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 45
     for module in ("probes.py", "ops/transforms_torch.py", "ops/mtf_cuda.py", "compressors/chain.py",
-                   "compressors/bwt.py", "compressors/lzss.py", "compressors/repair.py"):
+                   "compressors/bwt.py", "compressors/lzss.py", "compressors/repair.py",
+                   "ds/suffix_tree.py", "ds/binary_suffix_tree.py", "ds/naiv_st.py", "compressors/lz78u.py",
+                   "compressors/lfs.py", "compressors/lfs2.py", "generators/generators.py",
+                   "logging_setup.py", "stats/phase.py", "__main__.py"):
         assert any(p.endswith(os.path.join("tudocomp_tpu_torch", module)) for p in paths), module
     bad = [
         (os.path.relpath(p, ROOT), m)
@@ -312,6 +335,17 @@ def test_port_imports_nothing_of_the_jax_package():
         if m.split(".")[0] in ("jax", "jaxlib", "tudocomp_tpu")
     ]
     assert not bad, bad
+    # the C, C++ and CUDA sources include only system headers and each
+    # other, nothing of the JAX package's native/ directory
+    csrc = os.path.join(ROOT, "tudocomp_tpu_torch", "csrc")
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(csrc) for f in fs if f.endswith((".c", ".cpp", ".cu", ".h"))]
+    assert os.path.join(csrc, "host", "tdc_memhook.c") in sources
+    for src in sources:
+        for line in open(src):
+            if line.lstrip().startswith("#include") and '"' in line:
+                name = line.split('"')[1]
+                assert os.path.isfile(os.path.join(os.path.dirname(src), name)), (src, name)
+                assert "native" not in name and "tudocomp_tpu" not in name, (src, name)
 
 
 @pytest.mark.parametrize(

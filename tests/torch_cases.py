@@ -465,3 +465,26 @@ def mtf_edge_cases(chunk: int = 4096) -> dict:
         "runs across sub-chunks": runs.tobytes(),
         "permutations of 256": np.concatenate([rng.permutation(256) for _ in range(4 * chunk // 256 + 3)]).astype(np.uint8).tobytes(),
     }
+
+
+# tests/test_matrix.py's seven texts (its default corpus)
+MATRIX_TEXTS = [
+    b"",
+    b"a",
+    b"abcdebcdeabc",
+    b"aaaaaaaaa",
+    b"foobar\0foobar",
+    "ประเทศไทย中华".encode(),
+    b"\xff\xfe\xc0 escape pool \xff\0",
+]
+
+
+def matrix_tail_inputs() -> dict:
+    """The inputs of the lz78u, lfs_comp and lfs2 id tests: the seven
+    matrix texts, 12 KiB of `english` and 12 KiB of seeded A/C/G/T."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(5).integers(0, 4, 12 << 10)]
+    return {
+        **{f"matrix text {i}": t for i, t in enumerate(MATRIX_TEXTS)},
+        "english 12 KiB": english(12 << 10, seed=3),
+        "acgt 12 KiB": acgt.tobytes(),
+    }

@@ -1,7 +1,7 @@
-"""Compressor base interface.
+"""Compressor / Generator base interfaces.
 
 The port's copy of tudocomp_tpu/base.py: the two-method contract of
-include/tudocomp/Compressor.hpp:36-42.
+include/tudocomp/Compressor.hpp:36-42 and include/tudocomp/Generator.hpp:13.
 """
 
 from __future__ import annotations
@@ -15,4 +15,9 @@ class Compressor(Algorithm):
         raise NotImplementedError
 
     def decompress(self, inp: Input, out: Output) -> None:  # pragma: no cover
+        raise NotImplementedError
+
+
+class Generator(Algorithm):
+    def generate(self) -> bytes:  # pragma: no cover
         raise NotImplementedError

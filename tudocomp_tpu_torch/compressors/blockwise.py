@@ -20,7 +20,12 @@ device, every other block through the driver, one after another (the JAX
 package's thread pool decodes 8 KiB blocks 3-8x slower, PERF.md
 section 5).
 
-Not ported yet: a blockwise inner.
+A blockwise inner has neither a device route nor a batch hook, so each
+outer block goes through the driver and takes the inner blockwise's own
+routing: blockwise(blockwise(encode(huff))) runs the device runtime (kernels
+A-C, and D on decode) once per outer block, blockwise(blockwise(lzw)) the
+batch hook once per outer block. Its container is a TBK1 of TBK1s, the JAX
+package's bytes.
 """
 
 from __future__ import annotations
@@ -48,10 +53,6 @@ class BlockwiseCompressor(Compressor):
 
     def _inner(self):
         av = self.env.option("inner").as_algorithm()
-        if av.name == "blockwise":
-            raise NotImplementedError(
-                "blockwise as the inner compressor is not ported yet (ROADMAP.md, Queue 1 item 4d)"
-            )
         return self.env.registry.select_algorithm(av, "compressor"), av
 
     def compress(self, inp: Input, out: Output) -> None:

@@ -5,17 +5,22 @@ compress, write the id string and '%', wrap the input with the
 compressor's restrictions and run it; on decompress, read the header up to
 '%' (at most 1023 bytes), select the algorithm, wrap the output and run it.
 The algorithms come from a TorchRegistry bound to `device`, or from the
-`registry` given, whose device then wins.
+`registry` given, whose device then wins. Each call logs its algorithm at
+INFO on the `tudocomp_tpu_torch.driver` logger (the command line's
+--loglevel 0).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 from .io.inout import Input, Output
 from .registry import TorchRegistry
 
 __all__ = ["compress", "decompress"]
+
+_LOG = logging.getLogger("tudocomp_tpu_torch.driver")
 
 
 def compress(
@@ -25,6 +30,7 @@ def compress(
     av = reg.parse_algorithm_id(id_string, "compressor")
     comp = reg.select_algorithm(av, "compressor")
     rest = comp.meta().input_restrictions
+    _LOG.info("compress: algorithm %s on %s", av.id_string(), reg.device)
     out = Output()
     if not raw:
         if "%" in id_string:
@@ -63,6 +69,7 @@ def decompress(
         raise ValueError("raw decompression needs the algorithm id")
     comp = reg.select(id_string, "compressor")
     rest = comp.meta().input_restrictions
+    _LOG.info("decompress: algorithm %s on %s", id_string, reg.device)
     out = Output()
     wrapped = out.with_restrictions(rest) if rest.has_restrictions else out
     comp.decompress(inp, wrapped)

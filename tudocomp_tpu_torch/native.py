@@ -15,6 +15,11 @@ is built with g++ at first use into `build/tudocomp_tpu_torch/` at the
 repository root (git-ignored), named by a hash of the source, so a change rebuilds. Every caller keeps a
 pure-Python fallback, so the host path runs, slower, where no compiler is
 found: this is host code, not a device fallback.
+
+`memhook_so_path` builds the malloc interposer (csrc/host/tdc_memhook.c,
+the port's copy of native/tdc_memhook.c) the same way, with `g++ -x c`,
+for the command line's TDC_MALLOC_HOOK=1, and raises where it cannot;
+`memhook_counters` reads its counters where it is preloaded.
 """
 
 from __future__ import annotations
@@ -28,10 +33,12 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["get_lib"]
+__all__ = ["get_lib", "memhook_counters", "memhook_so_path"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC_PATH = os.path.join(_PKG, "csrc", "host", "tdc_host.cpp")
+_MEMHOOK_SRC = os.path.join(_PKG, "csrc", "host", "tdc_memhook.c")
+_MEMHOOK_FLAGS = ("-x", "c", "-std=gnu11", "-O2", "-fPIC", "-shared")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tudocomp_tpu_torch")
 _FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
@@ -47,19 +54,20 @@ def _so_path() -> str:
     return os.path.join(_BUILD_DIR, f"libtdc_host-{h.hexdigest()[:16]}.so")
 
 
-def _build(so_path: str) -> bool:
+def _compile(so_path: str, flags, src: str, libs=()) -> str:
     """Compile to a file of this process's own, then rename it into place,
-    so that processes building at once never load a half-written library."""
+    so that processes building at once never load a half-written library.
+    Returns "" on success, else the compiler's complaint."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}"
     try:
-        r = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC_PATH], capture_output=True, timeout=240)
+        r = subprocess.run(["g++", *flags, "-o", tmp, src, *libs], capture_output=True, timeout=240)
         if r.returncode != 0:
-            return False
+            return r.stderr.decode(errors="replace") or f"g++ exited with {r.returncode}"
         os.replace(tmp, so_path)
-        return True
-    except Exception:
-        return False
+        return ""
+    except Exception as e:
+        return repr(e)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -134,7 +142,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is None and not _tried:
             _tried = True
             so_path = _so_path()
-            if os.path.exists(so_path) or _build(so_path):
+            if os.path.exists(so_path) or not _compile(so_path, _FLAGS, _SRC_PATH):
                 try:
                     lib = ctypes.CDLL(so_path)
                     _bind(lib)
@@ -142,3 +150,32 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 except OSError:
                     pass
     return _lib
+
+
+def memhook_so_path() -> str:
+    """Path of the LD_PRELOAD malloc interposer (csrc/host/tdc_memhook.c),
+    built at first use into build/tudocomp_tpu_torch/ and named by a hash
+    of its source and flags. Raises RuntimeError where it cannot be built:
+    a run that asked for the interposer's numbers gets them or fails."""
+    h = hashlib.sha256(" ".join(_MEMHOOK_FLAGS).encode())
+    with open(_MEMHOOK_SRC, "rb") as f:
+        h.update(f.read())
+    so = os.path.join(_BUILD_DIR, f"libtdc_memhook-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        err = _compile(so, _MEMHOOK_FLAGS, _MEMHOOK_SRC, ("-ldl",))
+        if err:
+            raise RuntimeError(f"the malloc interposer did not build: {err.strip()[-2000:]}")
+    return so
+
+
+def memhook_counters():
+    """(current_fn, peak_fn, reset_peak_fn) when the malloc interposer is
+    preloaded into this process; None otherwise."""
+    try:
+        lib = ctypes.CDLL(None)
+        lib.tdc_memhook_active  # raises if not preloaded
+    except (AttributeError, OSError):
+        return None
+    lib.tdc_mem_current.restype = ctypes.c_longlong
+    lib.tdc_mem_peak.restype = ctypes.c_longlong
+    return lib.tdc_mem_current, lib.tdc_mem_peak, lib.tdc_mem_reset_peak

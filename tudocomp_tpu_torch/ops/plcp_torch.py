@@ -36,6 +36,15 @@ from .bitpack_cuda import on_cuda
 
 __all__ = ["lcp_device", "lcp_from_plcp_device", "plcp_device", "plcp_device_plain"]
 
+# Segment length of the plain walk when plcp_device runs it on the CPU
+# (TextDS under TDC_DEVICE_SA=1 with device="cpu"). Each step is a dozen
+# torch calls over all lanes, so the walk's length (seg steps and more)
+# costs more there than its width: 256 keeps texts of a few KiB to a few
+# hundred KiB to a few hundred steps, where 4096 walks thousands. The PLCP
+# is the same at every seg.
+CPU_SEG = 256
+
+
 def _phi(sa: torch.Tensor) -> torch.Tensor:
     """phi[sa[i]] = sa[i-1]; phi[sa[0]] = sa[n-1] (PhiFromSA.hpp:37-45)."""
     phi = torch.empty_like(sa)
@@ -49,7 +58,7 @@ def plcp_device(text: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
     Bit-exact twin of plcp_from_phi_numpy / C++ tdc_plcp_from_phi.
     """
     if not on_cuda(text, sa):
-        return plcp_device_plain(text, sa)
+        return plcp_device_plain(text, sa, seg=CPU_SEG)
     if text.dtype != torch.uint8 or text.dim() != 1 or sa.shape != text.shape:
         raise ValueError("expected a [n] uint8 text and its [n] suffix array")
     n = int(text.shape[0])

@@ -6,12 +6,17 @@ and selection: it maps (type, name) to algorithm classes and selects and
 instantiates them from id strings. `TorchRegistry` holds the algorithms of
 the ported slices (`blockwise`, `lz78`, `lzw`, `lzss_lcp`, `esp`,
 `lcpcomp`, `encode`, the transforms `noop`, `rle`, `mtf` and `bwt`,
-`chain`, the host-only `lzss` and `repair`, the Huffman, arithmetic, sle and universal coders
+`chain`, the host-only `lzss` and `repair`, `lz78u` and its
+`lz78u_strategy` axis, `lfs_comp` and its `lfs_comp` and `lfs_comp_enc`
+axes, `lfs2` and `lfs2bst`, the Huffman, arithmetic, sle and universal coders
 `huff`, `arithmetic`, `sle`, `ascii`, `bit`, `gamma`, `delta`, `ternary`,
 `vbyte`, the `lz78trie` axis and the hash axes of its hash tries, the
 `textds` axis and its providers, esp's `slp_coder`, `d_coding`, `subseq`
-and `ipd` axes, and lcpcomp's `lcpcomp_comp` and `lcpcomp_dec` axes) and
-is bound to the one torch.device its device stages run on.
+and `ipd` axes, and lcpcomp's `lcpcomp_comp` and `lcpcomp_dec` axes), with the
+string generators of the command line's -g (`fib`, `thue_morse`,
+`random`, `run_rich`), and is bound to the one torch.device its device
+stages run on: all 293 ids of the JAX package's compressor matrix select.
+`types` and `generate_doc_string` give the command line's -l listing.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from .coders.universal import (
     VbyteCoder,
 )
 from .compressors import esp_dcoding as dc
-from .compressors import hash_axes, lz78_tries
+from .compressors import hash_axes, lfs, lfs2, lz78_tries, lz78u
 from .compressors.blockwise import BlockwiseCompressor
 from .compressors.bwt import BWTCompressor
 from .compressors.chain import ChainCompressor
@@ -47,6 +52,7 @@ from .compressors.simple import LiteralEncoder, MTFCompressor, NoopCompressor, R
 from .device import resolve
 from .ds import textds_algo
 from .dsl import evaluate, parse
+from .generators import generators
 from .meta import Algorithm, AlgorithmValue, Env
 
 __all__ = ["Registry", "TorchRegistry"]
@@ -78,6 +84,9 @@ class Registry:
     def names(self, algo_type: str) -> list[str]:
         return sorted(n for (t, n) in self._algos if t == algo_type)
 
+    def types(self) -> list[str]:
+        return sorted({t for (t, _) in self._algos})
+
     def parse_algorithm_id(self, id_string: str, algo_type: str = "compressor") -> AlgorithmValue:
         return evaluate(parse(id_string), algo_type, self)
 
@@ -88,6 +97,28 @@ class Registry:
     def select_algorithm(self, av: AlgorithmValue, algo_type: str = "compressor") -> Algorithm:
         cls = self.get_class(algo_type, av.name)
         return cls(Env(self, av))
+
+    def generate_doc_string(self, algo_type: str = "compressor") -> str:
+        """The -l listing of one algorithm type (the JAX package's format)."""
+        lines = [f"[{algo_type}]"]
+        for name in self.names(algo_type):
+            meta = self.get_class(algo_type, name).meta()
+            sig_parts = []
+            for d in meta.options.values():
+                if d.kind == "templated":
+                    dflt = f" = {d.default}" if d.default else ""
+                    sig_parts.append(f"{d.name}: {d.algo_type}{dflt}")
+                elif d.kind == "dynamic_compressor":
+                    sig_parts.append(f"{d.name}: compressor (dynamic)")
+                else:
+                    dflt = f" = {d.default}" if d.default is not None else ""
+                    sig_parts.append(f"{d.name}: string{dflt}")
+            sig = f"({', '.join(sig_parts)})" if sig_parts else ""
+            doc = meta.doc.splitlines()[0] if meta.doc else ""
+            lines.append(f"  {name}{sig}")
+            if doc:
+                lines.append(f"      {doc}")
+        return "\n".join(lines)
 
 
 class TorchRegistry(Registry):
@@ -134,6 +165,5 @@ class TorchRegistry(Registry):
             SLECoder,
         ):
             self.register(cls)
-        lz78_tries.register(self)
-        hash_axes.register(self)
-        textds_algo.register(self)
+        for module in (lz78_tries, hash_axes, textds_algo, lz78u, lfs, lfs2, generators):
+            module.register(self)
