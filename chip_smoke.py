@@ -5,6 +5,8 @@
     python3 chip_smoke.py --turns PARENT   # kernels A-J and P7 of PARENT's checkout and this one, in turns
     python3 chip_smoke.py --dh ROOT        # kernels A-J and P7 of ROOT's checkout, one JSON line
     python3 chip_smoke.py --j              # kernel J's device ms on phase 16's English text, one JSON line
+    python3 chip_smoke.py --rank DIR WORLD PORT RANK   # one gloo rank of phase 19 (the script starts them)
+    python3 chip_smoke.py --full           # the run, with the gate sweeps and the stage breakdowns
 
 Runs from the root of a checkout and needs one CUDA card. The reference
 of every phase is the port's own host path: driver.compress(algo, data,
@@ -57,14 +59,15 @@ line each:
   6. lz78 kernels   kernels E (LZ78 parse) and F (LZW parse) against their
                     plain versions and the host parses, exactly, at the
                     shapes phase 7 launches them with (the whole input as
-                    [200, 262144] and [6400, 8192]; the plain version of the
-                    first runs on its first 32 blocks, the host parse on all
-                    200), at [128, 8192], at an odd batch of 131 blocks, and
-                    E on [4, 262144] of one letter (phrases up to 724 bytes)
-                    and of uniform random bytes (its table near its worst
-                    load), and F on phase 8's 4 MiB blocks (the host parse
-                    on all, the plain version on the first two blocks'
-                    first 64 KiB); E's wrapper and device ms at both
+                    [200, 262144] and [6400, 8192]), at [128, 8192], at an
+                    odd batch of 131 blocks, and E on [4, 262144] of one
+                    letter (phrases up to 724 bytes) and of uniform random
+                    bytes (its table near its worst load), and F on phase
+                    8's 4 MiB blocks; the host parse on every whole block;
+                    in rows of 256 KiB and more the plain version (a step a
+                    byte) and the kernel again on the first 64 KiB of each
+                    row (PLAIN_PREFIX), of the first 32 rows at [200,
+                    262144] and of the first two at 4 MiB; E's wrapper and device ms at both
                     main-path shapes, with the factors of the longest block
                     (the longest chain of rounds) and the ms per factor;
                     F's at [6400, 8192] and 4 MiB; both kernels' registers
@@ -181,7 +184,8 @@ line each:
                     text, bwt:rle:mtf:encode(huff) on the 16 MiB English and
                     DNA texts, and each of the 16 matrix ids of the slice
                     (noop, rle, mtf, bwt, lzss, repair, the chain) on 1 MiB
-                    of English (repair on REPAIR_BYTES), through
+                    of English (lzss on LZSS_IDS_BYTES, repair on
+                    REPAIR_BYTES), through
                     driver.compress / decompress(device="cuda"): each
                     container equals the host path's, both decoders return
                     the input, kernel J launched wherever its gate takes the
@@ -193,10 +197,10 @@ line each:
                     KiB to 16 MiB of the English text, best of 2-3.
  18. matrix tail   the ids of lz78u, lfs_comp and lfs2 (host strategies
                     over the suffix stack that TextDS builds on the card)
-                    and the nested blockwise: (a) lz78u,
-                    lfs_comp(computing_strat=st) and (...=sim_st) on 1 MiB
-                    of the English text, lfs_comp (esa) and lfs2 on 256 KiB
-                    + 1, through driver.compress / decompress(device="cuda"):
+                    and the nested blockwise: (a) lz78u on 1 MiB of the
+                    English text, lfs_comp(computing_strat=st), (...=sim_st),
+                    lfs_comp (esa) and lfs2 on 256 KiB + 1 of it,
+                    through driver.compress / decompress(device="cuda"):
                     each container equals the host path's, both decoders
                     return the input, kernel H launched on each, and the
                     StatPhase stages card against host (suffix stack,
@@ -211,6 +215,39 @@ line each:
                     -s` on a 300 KiB file: the container equals the host
                     path's and the JSON's phases carry the card's memory
                     (devMemOff, devMemPeak, devMemFinal); the phase's seconds.
+ 19. group         the process group and blockwise's pools: (a) two
+                    processes of this script (--rank), gloo ranks sharing
+                    card 0, run pod_compress with the huff inner (per block
+                    and shared=1) on phase 3's 64 MiB and the lzss inner
+                    (shared 0 and 1) on 16 MiB of the English stand-in, at
+                    blocks of 256 KiB, after one warm call each; every
+                    container equals the one-process card run's and the
+                    host path's and decodes on the card through the driver
+                    to the input, and each rank launched the path's kernels
+                    (A, B, C or C's int64 instance; H); the backend, each
+                    rank's wall seconds and launches against one process's
+                    (two ranks on one card and one host: not a scaling
+                    figure); (b) blockwise(lz78u,bs=262144) on 4 MiB of the
+                    English text (16 blocks) with TDC_BLOCKWISE_PROCS unset,
+                    =8 and =0, encode (the spawn pool) and decode (the
+                    thread pool), the containers equal, the workers each
+                    arm's StatPhase logged; (c) blockwise_lzss_compress's
+                    thread pool at 1, 2, 4 and 8 threads on the 16 MiB, in
+                    turns (the numbers behind runtime.LZSS_THREADS); (d) the
+                    decode on 8 threads against one block after another, in
+                    turns, at 8 KiB and 256 KiB blocks of lz78(coder=bit) on
+                    8 MiB (with (b), the numbers behind
+                    compressors/blockwise.DEFAULT_WORKERS).
+                    Phases 1-18 run with TDC_BLOCKWISE_PROCS=0, the
+                    sequential host blocks they were measured with.
+Each phase's line carries t_s, the seconds since the script started. Two
+kinds of measurement run only under --full, so that the run stays well
+inside its time limit: the sweeps behind the size gates (phase 8's block
+sizes and inputs of few blocks, phase 10's prefixes, phase 13's sweep and
+thresholds, phase 15's and phase 17's sweeps) and the stage breakdowns
+(phase 8's stages and warm rates, phases 11, 13, 15 and 17's StatPhase
+spans); without it their keys are empty. Every path, container check and
+kernel check runs either way.
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (each with its launches on its path, its wrapper and device times,
 its bound and its plain version's time), and the final line {"ok": true, "device": {...}}. Any
@@ -252,6 +289,11 @@ sys.modules["jax"] = None  # the port runs without jax
 sys.modules["tudocomp_tpu"] = None  # and without the JAX package
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
+# the gate sweeps and the stage breakdowns run only under --full (set in
+# __main__): they measure where a gate sits and where a path's time goes,
+# not whether it is right, and would take the run near its time limit
+FULL = False
 MIB = 1 << 20
 BS = 1 << 18  # the CLI's default block size
 BENCH_BLOCKS = 64  # bench.py's encode batch: 64 blocks of 256 KiB
@@ -290,16 +332,21 @@ TRANSFORM_IDS = ("noop", "rle", "mtf", "bwt", "bwt(textds=textds(isa=sparse_isa)
 # text, 4.7 s at 256 KiB, on the port's host path (one CPU run, not on the
 # card's host), so phase 17 runs its ids on a prefix
 REPAIR_BYTES = 128 << 10
+# the host-only lzss ids decode a factor at a time in Python (1.6-5.8 s at 1
+# MiB of English on the card's host, PR 13): phase 17 runs them on a prefix
+LZSS_IDS_BYTES = 256 << 10
 # the stages before mtf in an id: the input kernel J sees is their output
 MTF_FEED = {"mtf": None, "rle:mtf:encode(vbyte)": "rle", "bwt:rle:mtf:encode(huff)": "bwt:rle",
             "chain(bwt, chain(rle, chain(mtf, encode(huff))))": "bwt:rle"}
 TRANSFORM_SWEEP = tuple(k << 10 for k in (4, 8, 16, 32, 64, 256, 1024, 4096, 16384))  # behind RLE_MIN_N, MTF_MIN_N
 MTF_CHUNKS = (1024, 2048, 4096, 8192)  # kernel J's chunk sizes timed in phase 16
 # phase 18's ids of the suffix-tree families -> bytes of synth_english (seed
-# 7) they run on: 1 MiB, or 256 KiB + 1 for the two slowest host strategies
-# (the sentinel makes it 256 KiB + 2 for TextDS, past device.SA_MIN_N
-# whichever length the gate were to see)
-TAIL_ALGOS = {"lz78u": MIB, "lfs_comp(computing_strat=st)": MIB, "lfs_comp(computing_strat=sim_st)": MIB,
+# 7) they run on: 1 MiB for lz78u, 256 KiB + 1 for the host strategies of
+# lfs_comp and lfs2 (3-9 s each at 1 MiB, PR 15; the sentinel makes it 256
+# KiB + 2 for TextDS, past device.SA_MIN_N whichever length the gate were
+# to see)
+TAIL_ALGOS = {"lz78u": MIB, "lfs_comp(computing_strat=st)": (256 << 10) + 1,
+              "lfs_comp(computing_strat=sim_st)": (256 << 10) + 1,
               "lfs_comp": (256 << 10) + 1, "lfs2": (256 << 10) + 1}
 # each family's two StatPhase spans: the one that builds the suffix stack
 # (Construct SA/ISA/LCP inside it) and the rules or the tree, and the one
@@ -314,9 +361,21 @@ NESTED_SMALL = ("blockwise(blockwise(encode(huff),bs=1000),bs=3000)",
 NESTED_ALGO = "blockwise(blockwise(encode(huff)),bs=4194304)"  # 16 inner blocks of 256 KiB an outer block
 NESTED_BYTES = 64 * MIB
 CLI_BYTES = 300 << 10  # phase 18's file for `python -m tudocomp_tpu_torch -a lz78u -s`: its SA on the card
+GROUP_CASES = (("huff", False), ("huff", True), ("lzss", False), ("lzss", True))  # pod_compress's inner, shared
+GROUP_KERNELS = {"huff shared=0": ("huffman_tables", "pack_blocks", "pack_bytes_blocks"),
+                 "huff shared=1": ("huffman_tables64", "pack_blocks", "pack_bytes_blocks"),
+                 "lzss shared=0": ("plcp_segments",), "lzss shared=1": ("plcp_segments",)}
+POOL_ALGO = "blockwise(lz78u,bs=262144)"  # a host inner: the encode pool's processes, the decode pool's threads
+POOL_BYTES = 4 * MIB  # 16 blocks
+LZSS_WORKERS = (1, 2, 4, 8)  # threads of blockwise_lzss_compress timed in turns
+DECODE_POOL_BYTES = 8 * MIB  # the lz78(coder=bit) containers the decode pool is timed on
 PLAIN_BLOCKS = 32  # blocks of 256 KiB that kernel E's plain version is run on
+# bytes of a block of 256 KiB or more that the plain versions of E and F
+# step through (a step a byte, ~0.2 ms a step on the card: 55 s for a whole
+# 256 KiB row); the kernel runs again on those, and on the whole rows is
+# held to the host parse
+PLAIN_PREFIX = 1 << 16
 LZW_BIG_BS = 4 * MIB  # phase 6 runs F on phase 8's blocks of 4 MiB too
-LZW_PLAIN_PREFIX = 1 << 16  # bytes of those blocks the plain version steps through
 GATE_BS = (1 * MIB, 2 * MIB, 4 * MIB, 8 * MIB)  # phase 8's block sizes for the parse gate
 # phase 8's inputs of few blocks, (block size, blocks): where the card's
 # parallel blocks stop paying for its longer chain per block
@@ -442,6 +501,10 @@ OLD_DEVICE_FNS = {
 
 
 def emit(obj) -> None:
+    """Print obj as one JSON line; a phase's line also carries t_s, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1255,8 +1318,11 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    for var in (*GATES, "TDC_BLOCKWISE_PROCS"):
+    for var in GATES:
         os.environ.pop(var, None)
+    # phases 1-18 run host blocks one after another, as they were measured;
+    # phase 19 sets TDC_BLOCKWISE_PROCS itself
+    os.environ["TDC_BLOCKWISE_PROCS"] = "0"
 
     import numpy as np
 
@@ -1455,6 +1521,10 @@ def main() -> int:
     timing["plcp_segments"]["launches_by_shape"]["matrix tail"] = launches_h
     for name, n in launches_nested.items():
         timing[name]["launches_nested_blockwise"] = n
+
+    # 19. two gloo ranks on the card, the blockwise pools
+    for name, n in group_phase(gpu).items():
+        timing[name]["launches_two_ranks"] = n
 
     print(gpu)
     emit({"kernels": [
@@ -1684,9 +1754,8 @@ def lz78_kernel_phase(text, dev, gpu):
     one_nv = np.array([BS, BS - 1, BS - 418, 1], np.int32)  # BS - 418: ends on a factor
     rand = np.random.default_rng(11).integers(0, 256, (4, BS)).astype(np.uint8)
     rand_nv = np.array([BS, BS - 1, BS - 2, BS - 3], np.int32)
-    # F at phase 8's 4 MiB blocks: all blocks against the host parse; the plain
-    # version (a step a byte, ~0.2 ms a step on the card) on the first two
-    # blocks' first LZW_PLAIN_PREFIX bytes, the kernel run again on those
+    # F at phase 8's 4 MiB blocks: all blocks against the host parse, the
+    # plain version on the first two blocks' first PLAIN_PREFIX bytes
     big, big_nv = split_blocks(text.tobytes(), LZW_BIG_BS)
     cases = {
         "lz78 [128, 8192]": ("lz78_parse", *batch(0, 128, 8192)),
@@ -1711,11 +1780,12 @@ def lz78_kernel_phase(text, dev, gpu):
         b, nv = torch.from_numpy(blocks).to(dev), torch.from_numpy(n_valid).to(dev)
         got = kernel(b, nv)
         torch.cuda.empty_cache()  # the plain child table of 200 blocks of 256 KiB takes ~52 GiB
-        k = min(PLAIN_BLOCKS, len(blocks)) if blocks.shape[1] == BS else len(blocks)
-        if blocks.shape[1] == LZW_BIG_BS:  # the plain version on a prefix of the first two blocks
-            k, pre = 2, nv[:2].clamp(max=LZW_PLAIN_PREFIX)
-            want, plain_ms = cuda_once(lambda: plain(b[:2], pre))
-            err = max_abs_err(kernel(b[:2], pre), want)
+        k = 2 if blocks.shape[1] == LZW_BIG_BS else min(PLAIN_BLOCKS, len(blocks)) if blocks.shape[1] == BS \
+            else len(blocks)
+        if blocks.shape[1] >= BS:  # the plain version on a prefix of the first k blocks
+            pre = nv[:k].clamp(max=PLAIN_PREFIX)
+            want, plain_ms = cuda_once(lambda: plain(b[:k], pre))
+            err = max_abs_err(kernel(b[:k], pre), want)
         else:
             want, plain_ms = cuda_once(lambda: plain(b[:k], nv[:k]))
             err = max_abs_err(tuple(g[:k] for g in got), want)
@@ -1729,7 +1799,8 @@ def lz78_kernel_phase(text, dev, gpu):
             mid = sum(len(p) > 1 and bool(((p[:-1] == p[-1]) & (c[:-1] == c[-1])).any()) for p, c in per_block)
             if mid == 0:
                 raise AssertionError(f"{name}: no block ends inside a phrase")
-        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_blocks": k, "factors": int(got[-1].sum()),
+        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_blocks": k,
+                        "plain_prefix": PLAIN_PREFIX if blocks.shape[1] >= BS else None, "factors": int(got[-1].sum()),
                         "longest_block_factors": int(got[-1].max()), "us_per_factor": ms * 1e3 / int(got[-1].max()),
                         "blocks_ending_mid_phrase": mid}
         errs[kname] = max(errs[kname], err)
@@ -1743,7 +1814,7 @@ def lz78_kernel_phase(text, dev, gpu):
             longest = int(got[-1].max())  # the factors of the longest chain of rounds
             e_shapes[f"[{len(blocks)}, {blocks.shape[1]}]"] = {
                 "ms": ms, **dt, "plain_ms": plain_ms, "plain_blocks": k,
-                "longest_block_factors": longest, "ms_per_factor": ms / longest}
+                "plain_prefix": PLAIN_PREFIX if blocks.shape[1] >= BS else None, "longest_block_factors": longest, "ms_per_factor": ms / longest}
         if line:
             timing[kname] = {"ms": ms, **dt, "plain_ms": plain_ms, **bound(kname, (b, nv), got),
                              **table_bytes(kname, (b, nv), got)}
@@ -1890,13 +1961,14 @@ def lz78_timing_phase(text, dev, gpu) -> None:
             "device_parse_to_lists_s": synced(lambda: helper(blocks, n_valid, dev))[1],
             "host_parse_s": host_s,
         }
-        stages[algo] = _stages(data, algo, dev)
-        container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
-        back, dec_s = synced(lambda: decompress(container, device="cuda"))
-        if back != data:
-            raise AssertionError(f"{algo}: warm roundtrip differs from the input")
-        e2e[algo] = {"encode_s": enc_s, "encode_MBps": len(data) / enc_s / 1e6,
-                     "decode_s": dec_s, "decode_MBps": len(data) / dec_s / 1e6}
+        if FULL:
+            stages[algo] = _stages(data, algo, dev)
+            container, enc_s = synced(lambda: compress(algo, data, device="cuda"))
+            back, dec_s = synced(lambda: decompress(container, device="cuda"))
+            if back != data:
+                raise AssertionError(f"{algo}: warm roundtrip differs from the input")
+            e2e[algo] = {"encode_s": enc_s, "encode_MBps": len(data) / enc_s / 1e6,
+                         "decode_s": dec_s, "decode_MBps": len(data) / dec_s / 1e6}
         torch.cuda.empty_cache()
     cap, gate, wins, few = tdev.PARSE_MAX_BS, {}, {}, {}
 
@@ -1917,7 +1989,7 @@ def lz78_timing_phase(text, dev, gpu) -> None:
 
     tdev.PARSE_MAX_BS = max(cap, *GATE_BS)  # lets TDC_DEVICE_LZ78=1 reach past the gate
     try:
-        for kind in ("lz78", "lzw"):
+        for kind in ("lz78", "lzw") if FULL else ():
             for bs in GATE_BS:
                 algo = f"blockwise({kind}(coder=bit),bs={bs})"
                 d, h = both(algo, data, kind, 1)
@@ -1933,7 +2005,7 @@ def lz78_timing_phase(text, dev, gpu) -> None:
         os.environ.pop("TDC_DEVICE_LZ78", None)
     for kind in ("lz78", "lzw"):  # what the gate picks, TDC_DEVICE_LZ78 unset
         for bs, n in FEW_BLOCKS:
-            few[f"{kind} {n} x {bs}"]["gate_takes_device"] = tdev.use_parse_device(bs, n, dev)
+            few.setdefault(f"{kind} {n} x {bs}", {})["gate_takes_device"] = tdev.use_parse_device(bs, n, dev)
     emit({"phase": "lz78 timing", "parse": shapes, "stages": stages, "end_to_end": e2e,
           "gate": gate, "device_parse_wins": wins, "few_blocks": few, "parse_max_bs": cap,
           "parse_min_blocks": tdev.PARSE_MIN_BLOCKS, "parse_one_block_bs": tdev.PARSE_ONE_BLOCK_BS, "card": gpu})
@@ -2329,7 +2401,7 @@ def suffix_phase(english, dev, gpu):
 
     # the gates' crossovers: prefixes of the English text, host against card
     sizes = {}
-    for n in (1 << 14, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 22):
+    for n in (1 << 14, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 22) if FULL else ():
         text = np.concatenate([english[:n], np.zeros(1, np.uint8)])
         best_h, best_d = None, None
         for _ in range(3):
@@ -2452,7 +2524,7 @@ def lzss_roundtrip_phase(english, dev, gpu) -> dict:
               "host_reference_encode_s": t1 - t0, "host_reference_decode_s": t2 - t1, "card": gpu})
         del container, back, ref
     stages = {}
-    for which, data in inputs.items():
+    for which, data in inputs.items() if FULL else ():
         with host_path():
             host = lzss_stages(data, "cpu")
         stages[which] = {"card": lzss_stages(data, "cuda"), "host": host}
@@ -2669,22 +2741,23 @@ def esp_roundtrip_phase(english, dev, gpu) -> int:
               "host_reference_encode_s": t1 - t0, "host_reference_decode_s": t2 - t1, "card": gpu})
         del container, back, ref
 
-    stages = {}
-    for algo in ESP_ALGOS:
+    stages, sorted_1mib = {}, {}
+    for algo in ESP_ALGOS if FULL else ():
         card_st, container = esp_stages(inputs[ESP_BYTES], algo, "cuda")
         with host_path():
             host_st, host_container = esp_stages(inputs[ESP_BYTES], algo, "cpu")
         if container != host_container:
             raise AssertionError(f"{algo}: the staged encode's container differs from the host path's")
         stages[algo] = {"card": card_st, "host": host_st}
-    sorted_1mib, container = esp_stages(inputs[MIB], "esp(slp_coder=sorted)", "cuda")
-    if container != ref_compress("esp(slp_coder=sorted)", inputs[MIB]):
-        raise AssertionError("esp(slp_coder=sorted): the staged 1 MiB container differs from the host path's")
+    if FULL:
+        sorted_1mib, container = esp_stages(inputs[MIB], "esp(slp_coder=sorted)", "cuda")
+        if container != ref_compress("esp(slp_coder=sorted)", inputs[MIB]):
+            raise AssertionError("esp(slp_coder=sorted): the staged 1 MiB container differs from the host path's")
 
     # the sweep behind ESP_MIN_N: device rounds (input up, rules back) against
     # the host rounds, on prefixes of the 16 MiB text
     sweep = {}
-    for n in ESP_SWEEP:
+    for n in ESP_SWEEP if FULL else ():
         arr = np.frombuffer(inputs[ESP_BYTES][:n], np.uint8)
         reps = 3 if n <= 4 * MIB else 2
         dev_g, dev_s = best_of(lambda: et.esp_grammar_device(arr, device=dev), reps)
@@ -2693,9 +2766,9 @@ def esp_roundtrip_phase(english, dev, gpu) -> int:
             raise AssertionError(f"device grammar differs from the host's at {n} bytes")
         sweep[n] = {"device_s": dev_s, "host_s": host_s, "host_over_device": host_s / dev_s}
     arr = np.frombuffer(inputs[ESP_BYTES], np.uint8)
-    want = generate_grammar(arr)
+    want = generate_grammar(arr) if FULL else None
     thresholds = {}
-    for t in ESP_THRESHOLDS:
+    for t in ESP_THRESHOLDS if FULL else ():
         g, thresholds[t] = best_of(lambda: et.esp_grammar_device(arr, threshold=t, device=dev), 2)
         if not (np.array_equal(g[0], want[0]) and g[1:] == want[1:]):
             raise AssertionError(f"threshold {t}: the grammar differs from the host's")
@@ -2796,7 +2869,7 @@ def lcpcomp_stages_phase(english, dev, gpu) -> None:
 
     data = english[:LCPCOMP_BYTES].tobytes()
     stages = {}
-    for algo in LCPCOMP_ALGOS:
+    for algo in LCPCOMP_ALGOS if FULL else ():
         card_enc, container = phase_spans(lambda: compress(algo, data, device="cuda"))
         torch.cuda.synchronize()
         card_dec, back = phase_spans(lambda: decompress(container, device="cuda"))
@@ -2809,7 +2882,7 @@ def lcpcomp_stages_phase(english, dev, gpu) -> None:
                         "host": {"encode": host_enc, "decode": host_dec}}
         del container, host_container, back, host_back
 
-    sweep = lcpcomp_sweep(english, dev)
+    sweep = lcpcomp_sweep(english, dev) if FULL else {}
     no_jax()
     emit({"phase": "lcpcomp stages", "bytes": LCPCOMP_BYTES, "stages": stages, "gate_sweep_best_of_2_3": sweep,
           "gates": {"LCPCOMP_MIN_N": tdev.LCPCOMP_MIN_N, "LCPCOMP_DEC_MIN_N": tdev.LCPCOMP_DEC_MIN_N}, "card": gpu})
@@ -3009,7 +3082,8 @@ def transforms_roundtrip_phase(english, dev, gpu) -> int:
     runs = [("rle:mtf:encode(vbyte)", "synth_english", small), ("rle:mtf:encode(vbyte)", "synth_english",
                                                                  big["synth_english"]),
             *(("bwt:rle:mtf:encode(huff)", which, data) for which, data in big.items()),
-            *((algo, "synth_english", small[:REPAIR_BYTES] if algo.startswith("repair") else small)
+            *((algo, "synth_english", small[:REPAIR_BYTES] if algo.startswith("repair")
+               else small[:LZSS_IDS_BYTES] if algo.startswith("lzss(") else small)
               for algo in TRANSFORM_IDS)]
     launched_all = 0
     for algo, which, data in runs:
@@ -3045,7 +3119,7 @@ def transforms_roundtrip_phase(english, dev, gpu) -> int:
 
     stages = {}
     data = big["synth_english"]
-    for algo in TRANSFORM_ALGOS:
+    for algo in TRANSFORM_ALGOS if FULL else ():
         compress(algo, data, device="cuda")  # warm
         card_enc, container = phase_spans(lambda: compress(algo, data, device="cuda"))
         torch.cuda.synchronize()
@@ -3063,7 +3137,7 @@ def transforms_roundtrip_phase(english, dev, gpu) -> int:
     # runs it, host bytes in and out, the gate forced each way
     sweep = {}
     text = english[:TRANSFORM_BYTES]
-    for n in TRANSFORM_SWEEP:
+    for n in TRANSFORM_SWEEP if FULL else ():
         arr = np.ascontiguousarray(text[:n])
         reps = 3 if n <= 4 * MIB else 2
         row = {}
@@ -3240,12 +3314,251 @@ def matrix_tail_phase(gpu) -> tuple:
     return launched_h, nested_launches
 
 
+def roundtrip_bytes():
+    """Phase 3's 64 MiB: zipf(1.3) bytes, then 16 MiB of the *.md text."""
+    import numpy as np
+
+    return np.concatenate([zipf_bytes(2, ROUNDTRIP_BYTES - TEXT_BYTES), text_bytes(TEXT_BYTES)])
+
+
+def group_inputs() -> dict:
+    """Phase 19's inputs by pod_compress's inner: phase 3's 64 MiB for huff,
+    16 MiB of synth_english for lzss."""
+    return {"huff": roundtrip_bytes().tobytes(), "lzss": english_bytes(LZSS_BYTES).tobytes()}
+
+
+def group_launches(name: str, counts: dict) -> dict:
+    """The kernels of a group case's path that a rank holding blocks must
+    have launched, and their counts; raises where one is 0."""
+    got = {k: counts[k] for k in GROUP_KERNELS[name]}
+    if not all(got.values()):
+        raise AssertionError(f"{name}: a kernel of the path never launched: {got}")
+    return got
+
+
+def rank_main(out_dir: str, world: int, port: int, rank: int) -> int:
+    """--rank: one rank of phase 19's gloo group on card 0. Each case is
+    pod_compress on group_inputs() after a barrier; rank 0 writes the
+    container to out_dir. One JSON line: the rank's wall seconds and kernel
+    launches by case."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.parallel.distributed import init_distributed, pod_compress
+
+    dist = torch.distributed
+    if not init_distributed(f"127.0.0.1:{port}", world, rank, timeout_s=180):
+        raise RuntimeError("no process group")
+    dev = torch.device("cuda", 0)
+    inputs = group_inputs()
+    for inner, data in inputs.items():  # warm: the kernels' library, the allocator, the collectives
+        pod_compress(data[:MIB], BS, inner=inner, device=dev)
+    cases = {}
+    for inner, shared in GROUP_CASES:
+        name = f"{inner} shared={int(shared)}"
+        dist.barrier()
+        kernels.reset_counts()
+        out, secs = synced(lambda: pod_compress(inputs[inner], BS, shared_table=shared, inner=inner, device=dev))
+        if (out is None) != (rank != 0):
+            raise AssertionError(f"{name}: pod_compress returned {type(out)} on rank {rank}")
+        if out is not None:
+            with open(os.path.join(out_dir, f"{inner}-{int(shared)}.bin"), "wb") as f:
+                f.write(out)
+        cases[name] = {"seconds": secs, "launches": group_launches(name, kernels.counts())}
+    dist.barrier()
+    no_jax()
+    emit({"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev), "cases": cases})
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int) -> list:
+    """Phase 19's group: `world` processes of this script (--rank), each a
+    gloo rank on card 0; their JSON lines and rank 0's containers."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", tmp, str(world), str(port),
+                               str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    try:
+        for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} failed ({p.returncode}): {so[-2000:]} {se[-3000:]}")
+        lines = [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+        containers = {}
+        for name in os.listdir(tmp):
+            with open(os.path.join(tmp, name), "rb") as f:
+                containers[name[: -len(".bin")]] = f.read()
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    return lines, containers
+
+
+@contextlib.contextmanager
+def blockwise_procs(value):
+    """TDC_BLOCKWISE_PROCS set to `value` (None: unset) inside, restored after."""
+    old = os.environ.pop("TDC_BLOCKWISE_PROCS", None)
+    if value is not None:
+        os.environ["TDC_BLOCKWISE_PROCS"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("TDC_BLOCKWISE_PROCS", None)
+        if old is not None:
+            os.environ["TDC_BLOCKWISE_PROCS"] = old
+
+
+def spans_workers(spans: dict, title: str) -> int:
+    return int(spans[f"{title}: workers"])
+
+
+def group_phase(gpu) -> dict:
+    """Phase 19: two gloo ranks sharing card 0 against one process and the
+    host path; TDC_BLOCKWISE_PROCS unset, =8 and =0 on the encode and
+    decode pools; the lzss thread pool and the decode pool in turns.
+    Returns the group's launches by kernel (each rank's, summed)."""
+    import torch
+
+    from tudocomp_tpu_torch import kernels
+    from tudocomp_tpu_torch.compressors import blockwise as bw
+    from tudocomp_tpu_torch.driver import compress, decompress
+    from tudocomp_tpu_torch.parallel import runtime
+    from tudocomp_tpu_torch.parallel.distributed import pod_compress
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    # (a) two ranks against one: every container equal to the one-process
+    # card run and to the host path
+    t0 = time.perf_counter()
+    lines, two = run_ranks(2)
+    ranks_s = time.perf_counter() - t0
+    inputs = group_inputs()
+    for inner, data in inputs.items():  # warm, as the ranks are
+        pod_compress(data[:MIB], BS, inner=inner, device=dev)
+    cases, group_counts = {}, {}
+    for inner, shared in GROUP_CASES:
+        name = f"{inner} shared={int(shared)}"
+        data = inputs[inner]
+        kernels.reset_counts()
+        one, one_s = synced(lambda: pod_compress(data, BS, shared_table=shared, inner=inner, device=dev))
+        one_launches = group_launches(name, kernels.counts())
+        if two[f"{inner}-{int(shared)}"] != one:
+            raise AssertionError(f"{name}: the two ranks' container differs from one process's")
+        t0 = time.perf_counter()
+        algo = f"blockwise({LZSS_ALGO if inner == 'lzss' else 'encode(huff)'},bs={BS},shared={int(shared)})"
+        with host_path():
+            if inner == "lzss":  # one process, the runtime: its blocks on the C++ host stack
+                host = runtime.blockwise_lzss_compress(data, BS, "cpu", shared_table=shared)
+            else:  # the driver's container without its header
+                host = compress(algo, data, device="cpu", raw=True)
+        host_s = time.perf_counter() - t0
+        if host != one:
+            raise AssertionError(f"{name}: the card's container differs from the host path's")
+        if decompress(one, device="cuda", id_string=algo, raw=True) != data:
+            raise AssertionError(f"{name}: the card's decode differs from the input")
+        rank_launches = [line["cases"][name]["launches"] for line in lines]
+        for launches in rank_launches:
+            for k, v in launches.items():
+                group_counts[k] = group_counts.get(k, 0) + v
+        cases[name] = {"bytes": len(data), "container_bytes": len(one), "one_rank_s": one_s,
+                       "two_ranks_s": max(line["cases"][name]["seconds"] for line in lines),
+                       "rank_s": [line["cases"][name]["seconds"] for line in lines],
+                       "one_rank_launches": one_launches, "rank_launches": rank_launches,
+                       "host_path_s": host_s}
+    no_jax()
+    emit({"phase": "group", "part": "a", "backend": lines[0]["backend"], "ranks": len(lines),
+          "devices": [line["device"] for line in lines], "ranks_wall_s": ranks_s,
+          "note": "two ranks share one card and its host: not a scaling figure", "cases": cases, "card": gpu})
+    del inputs, two
+
+    # (b) the encode and decode pools: TDC_BLOCKWISE_PROCS unset, =8, =0 (with
+    # the unset default sequential, a run in turns for both pools)
+    english = english_bytes(POOL_BYTES).tobytes()
+    pools, containers = {}, {}
+    for procs in (None, "8", "0"):
+        label = "unset" if procs is None else procs
+        with blockwise_procs(procs):
+            spans, containers[label] = phase_spans(lambda: compress(POOL_ALGO, english, device="cuda"))
+            dspans, back = phase_spans(lambda: decompress(containers[label], device="cuda"))
+        if back != english:
+            raise AssertionError(f"{POOL_ALGO} at TDC_BLOCKWISE_PROCS={label}: the decode differs from the input")
+        pools[label] = {"encode_s": spans["total"], "encode_workers": spans_workers(spans, "host blockwise encode"),
+                        "decode_s": dspans["total"], "decode_workers": spans_workers(dspans, "blockwise decode")}
+    if len(set(containers.values())) != 1:
+        raise AssertionError(f"{POOL_ALGO}: the pools' containers differ")
+    if (pools["8"]["encode_workers"], pools["0"]["encode_workers"]) != (8, 0) or \
+            pools["unset"]["encode_workers"] != bw.DEFAULT_WORKERS:
+        raise AssertionError(f"the encode pool's arms: {pools}")
+    no_jax()
+    emit({"phase": "group", "part": "b", "algo": POOL_ALGO, "bytes": POOL_BYTES,
+          "blocks": POOL_BYTES // BS, "pools": pools, "card": gpu})
+
+    # (c) the lzss thread pool over a process's blocks, in turns
+    data = english_bytes(LZSS_BYTES).tobytes()
+    want = None
+    lzss_turns = {n: [] for n in LZSS_WORKERS}
+    for n in (*LZSS_WORKERS, *reversed(LZSS_WORKERS)):
+        out, secs = synced(lambda: runtime.blockwise_lzss_compress(data, BS, dev, workers=n))
+        if want is None:
+            want = out
+        elif out != want:
+            raise AssertionError(f"the lzss pool at {n} threads changed the container")
+        lzss_turns[n].append(secs)
+
+    # (d) the decode pool, threads against one after another, in turns
+    dec_turns = {}
+    small = english_bytes(DECODE_POOL_BYTES).tobytes()
+    for algo in ("blockwise(lz78(coder=bit),bs=8192)", "blockwise(lz78(coder=bit))"):
+        container = compress(algo, small, device="cuda")
+        row = {"0": [], "8": []}
+        for procs in ("0", "8", "8", "0"):
+            with blockwise_procs(procs):
+                back, secs = synced(lambda: decompress(container, device="cuda"))
+            if back != small:
+                raise AssertionError(f"{algo}: the decode at TDC_BLOCKWISE_PROCS={procs} differs from the input")
+            row[procs].append(secs)
+        dec_turns[algo] = {"bytes": len(small), "sequential_s": row["0"], "threads_8_s": row["8"],
+                           "sequential_over_threads": min(row["0"]) / min(row["8"])}
+    no_jax()
+    emit({"phase": "group", "part": "cd", "lzss_threads_s": lzss_turns, "lzss_default_threads": runtime.LZSS_THREADS,
+          "decode_turns": dec_turns, "pool_default_workers": bw.DEFAULT_WORKERS,
+          "seconds": time.perf_counter() - t_phase, "card": gpu})
+    return group_counts
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--j"]:
         sys.exit(j_main())
+    if len(sys.argv) == 6 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[2], *map(int, sys.argv[3:])))
     if len(sys.argv) == 3 and sys.argv[1] in ("--dh", "--turns"):
         sys.exit((dh_main if sys.argv[1] == "--dh" else turns_main)(sys.argv[2]))
-    if len(sys.argv) > 1:
+    if sys.argv[1:] == ["--full"]:
+        FULL = True
+    elif len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

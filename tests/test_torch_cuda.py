@@ -838,3 +838,77 @@ def test_matrix_tail_on_the_card(dev, algo):
         for v in env:
             del os.environ[v]
     assert got == want
+
+
+_RANK = """
+import os, sys
+import torch
+from tudocomp_tpu_torch import kernels
+from tudocomp_tpu_torch.parallel.distributed import init_distributed, pod_compress
+
+assert init_distributed(timeout_s=300)
+out, rank = sys.argv[1], int(os.environ["TDC_PROCESS_ID"])
+for name in sorted(f for f in os.listdir(out) if f.endswith(".input")):
+    with open(os.path.join(out, name), "rb") as f:
+        data = f.read()
+    inner = name.split(".")[0]
+    for shared in (False, True):
+        kernels.reset_counts()
+        bs = 262144 if inner == "lzss" else 65536  # lzss: the SA, and kernel H, on the card from 256 KiB
+        got = pod_compress(data, bs, shared_table=shared, inner=inner, device="cuda:0")
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        assert launches["plcp_segments" if inner == "lzss" else "pack_bytes_blocks"] > 0, launches
+        assert (got is None) == (rank != 0)
+        if got is not None:
+            with open(os.path.join(out, f"{inner}-{int(shared)}.bin"), "wb") as f:
+                f.write(got)
+assert "jax" not in sys.modules and "tudocomp_tpu" not in sys.modules
+"""
+
+
+def test_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks sharing card 0 (each encodes its half of the blocks on
+    the card; the histogram and the payloads cross on the host): pod_compress
+    with the huff inner and the lzss inner, shared 0 and 1, gives the
+    one-process card run's container and the host path's."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from tudocomp_tpu_torch.parallel import runtime
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.default_rng(4)
+    inputs = {"huff": bytes(rng.zipf(1.3, 1 << 20).clip(0, 255).astype(np.uint8)),
+              "lzss": tc.english(1 << 20, seed=8)}  # 16 blocks of 64 KiB, 4 of 256 KiB
+    for inner, data in inputs.items():
+        (tmp_path / f"{inner}.input").write_bytes(data)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(tmp_path)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env=dict(os.environ, PYTHONPATH=root, TDC_NUM_PROCESSES="2", TDC_PROCESS_ID=str(r),
+                                       TDC_COORDINATOR=f"127.0.0.1:{port}"))
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0, se[-3000:]
+    for inner, data in inputs.items():
+        fn = runtime.blockwise_lzss_compress if inner == "lzss" else runtime.blockwise_huffman_compress
+        bs = 262144 if inner == "lzss" else 65536
+        for shared in (False, True):
+            got = (tmp_path / f"{inner}-{int(shared)}.bin").read_bytes()
+            assert got == fn(data, bs, dev, shared_table=shared)
+            os.environ.update({v: "0" for v in ("TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_HUFF")})
+            try:
+                assert got == fn(data, bs, "cpu", shared_table=shared)
+            finally:
+                for v in ("TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_HUFF"):
+                    del os.environ[v]

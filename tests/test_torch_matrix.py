@@ -13,8 +13,9 @@ equality.
 
 import pytest
 
-from tudocomp_tpu.registry_config import compressor_matrix
+from tudocomp_tpu import registry_config as jax_registry_config
 from tudocomp_tpu_torch.driver import compress, decompress
+from tudocomp_tpu_torch.registry_config import compressor_matrix
 
 from .torch_cases import MATRIX_TEXTS
 
@@ -25,6 +26,12 @@ GATES = ("TDC_DEVICE_HUFF", "TDC_DEVICE_LZ78", "TDC_DEVICE_SA", "TDC_DEVICE_LZSS
 
 def test_the_matrix_is_293_ids():
     assert len(MATRIX) == len(set(MATRIX)) == 293
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_the_matrix_is_the_jax_packages(fast):
+    """The port's copy of the matrix declaration lists the JAX package's ids."""
+    assert compressor_matrix(fast=fast) == jax_registry_config.compressor_matrix(fast=fast)
 
 
 @pytest.mark.parametrize("gate", ["0", "1"])

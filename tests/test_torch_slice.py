@@ -104,20 +104,10 @@ def test_host_coder_path_matches(monkeypatch):
     assert decompress(got, device="cpu") == data
 
 
-@pytest.mark.parametrize("algo", ["blockwise(blockwise(encode(huff)))"])
-def test_unported_options_raise(algo, monkeypatch):
-    """The nested blockwise is ported; what stays unported is more than one
-    GPU: in a process group of two, its inner blocks reach the runtime,
-    which names the ROADMAP item."""
-    monkeypatch.setenv("TDC_DEVICE_HUFF", "1")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compress(algo, b"abc", device="cpu")
-
-
 def test_more_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A device list in one process raises and names the way: one process
+    for each card (a process group; tests/test_torch_distributed.py)."""
+    with pytest.raises(ValueError, match="one process for each card"):
         resolve(["cuda:0", "cuda:1"])
 
 
@@ -326,7 +316,8 @@ def test_port_imports_nothing_of_the_jax_package():
                    "compressors/bwt.py", "compressors/lzss.py", "compressors/repair.py",
                    "ds/suffix_tree.py", "ds/binary_suffix_tree.py", "ds/naiv_st.py", "compressors/lz78u.py",
                    "compressors/lfs.py", "compressors/lfs2.py", "generators/generators.py",
-                   "logging_setup.py", "stats/phase.py", "__main__.py"):
+                   "logging_setup.py", "stats/phase.py", "__main__.py", "parallel/distributed.py",
+                   "registry_config.py"):
         assert any(p.endswith(os.path.join("tudocomp_tpu_torch", module)) for p in paths), module
     bad = [
         (os.path.relpath(p, ROOT), m)
@@ -368,3 +359,58 @@ def test_host_path_without_the_cpp_helpers(algo, monkeypatch):
     assert native.get_lib() is None
     assert compress(algo, data, device="cpu") == want
     assert decompress(want, device="cpu") == data
+
+
+@pytest.mark.parametrize(
+    "spec",
+    ["encode(huff)", "lz78(coder=bit)", "lzss_lcp(coder=huff,threshold=4)", "blockwise(encode(huff),bs=4096)",
+     "esp", ("LZ78Compressor", "coder=gamma"), ("LZSSLCPCompressor", "coder=huff")],
+)
+def test_create_algo_matches_jax_package(spec):
+    """registry.create_algo selects what the JAX package's does: the same
+    class and the same evaluated id, from an id string or a class with an
+    options string; the port's instance is bound to the device asked for."""
+    from tudocomp_tpu import registry as jax_registry
+    from tudocomp_tpu.compressors import lz78 as jax_lz78, lzss_lcp as jax_lzss_lcp
+    from tudocomp_tpu_torch import registry
+    from tudocomp_tpu_torch.compressors import lz78, lzss_lcp
+
+    if isinstance(spec, tuple):
+        name, options = spec
+        port_cls = getattr(lz78 if name.startswith("LZ78") else lzss_lcp, name)
+        jax_cls = getattr(jax_lz78 if name.startswith("LZ78") else jax_lzss_lcp, name)
+        got = registry.create_algo(port_cls, options, device="cpu")
+        want = jax_registry.create_algo(jax_cls, options)
+    else:
+        got = registry.create_algo(spec, device="cpu")
+        want = jax_registry.create_algo(spec)
+    assert type(got).__name__ == type(want).__name__
+    assert got.env.av.id_string() == want.env.av.id_string()
+    assert got.env.registry.device == torch.device("cpu")
+
+
+def test_paranoid_kraft_check_raises_in_both_packages(monkeypatch):
+    """With paranoid.ENABLED on, a Huffman table whose code lengths break
+    Kraft's equality (every length one longer) raises in both packages'
+    coders; with the true lengths both pass."""
+    from tudocomp_tpu import paranoid as jax_paranoid
+    from tudocomp_tpu.coders import huffman as jax_huffman
+    from tudocomp_tpu_torch import paranoid
+    from tudocomp_tpu_torch.coders import huffman
+
+    data = CASES["zipf"][:3000]
+    for mod in (paranoid, jax_paranoid):
+        monkeypatch.setattr(mod, "ENABLED", True)
+    assert compress("encode(huff)", data, device="cpu") == jax_compress("encode(huff)", data)
+    for mod in (huffman, jax_huffman):
+        true_lengths = mod.gen_codelengths
+        monkeypatch.setattr(mod, "gen_codelengths", lambda counts, f=true_lengths: f(counts) + 1)
+    with pytest.raises(AssertionError, match="PARANOID: Kraft"):
+        compress("encode(huff)", data, device="cpu")
+    with pytest.raises(AssertionError, match="PARANOID: Kraft"):
+        jax_compress("encode(huff)", data)
+    paranoid.check_sorted(np.arange(5), "a range")
+    with pytest.raises(AssertionError, match="not sorted"):
+        paranoid.check_sorted(np.array([2, 1]), "a pair")
+    with pytest.raises(AssertionError, match="PARANOID: a message"):
+        paranoid.check(False, "a message")

@@ -149,6 +149,9 @@ class HuffmanCoder:
                 self.w.write_bit(0)
                 return
             self.table = HuffmanTable.from_counts(counts)
+            from ..paranoid import check_kraft
+
+            check_kraft(self.table.ordered_codelengths)
             # full-alphabet lookup tables for vectorized encode
             self._cw = np.zeros(256, dtype=np.uint64)
             self._cl = np.zeros(256, dtype=np.int64)

@@ -46,10 +46,15 @@ __all__ = [
 
 
 def resolve(device) -> torch.device:
-    """A torch.device for one CPU or one CUDA card; raises for anything else."""
+    """A torch.device for one CPU or one CUDA card; raises for anything else.
+
+    A device list raises: the port runs one process for each card, joined
+    into a process group by parallel.distributed.init_distributed, in
+    place of the JAX package's device mesh."""
     if isinstance(device, (list, tuple)):
-        raise NotImplementedError(
-            "more than one GPU is not ported yet (ROADMAP.md, Queue 1 item 5)"
+        raise ValueError(
+            "a device list is not one device: run one process for each card "
+            "(tudocomp_tpu_torch.parallel.distributed.init_distributed)"
         )
     dev = torch.device(device)
     if dev.type == "cuda":

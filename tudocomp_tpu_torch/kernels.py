@@ -97,6 +97,7 @@ _lib = None
 _fns: dict[str, tuple] = {}  # launcher -> (ctypes function, counter name), filled once by _load
 _flags: dict[int, tuple] = {}  # device index -> (host word, device pointer, lock)
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches from several threads (the lzss pool) each count
 
 
 def _nvcc() -> str:
@@ -216,7 +217,8 @@ def _call(device: int, fn: str, ptrs: list) -> None:
     rc = f(*ptrs, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
-    _counts[name] += 1
+    with _count_lock:
+        _counts[name] += 1
 
 
 def launch(fn: str, *args) -> None:
@@ -285,5 +287,6 @@ def counts() -> dict[str, int]:
 
 
 def reset_counts() -> None:
-    for k in _counts:
-        _counts[k] = 0
+    with _count_lock:
+        for k in _counts:
+            _counts[k] = 0

@@ -17,11 +17,13 @@ string generators of the command line's -g (`fib`, `thue_morse`,
 `random`, `run_rich`), and is bound to the one torch.device its device
 stages run on: all 293 ids of the JAX package's compressor matrix select.
 `types` and `generate_doc_string` give the command line's -l listing.
+`create_algo` instantiates one algorithm from a class or an id string
+(mirror of include/tudocomp/CreateAlgorithm.hpp).
 """
 
 from __future__ import annotations
 
-from typing import Type
+from typing import Optional, Type
 
 import torch
 
@@ -53,9 +55,9 @@ from .device import resolve
 from .ds import textds_algo
 from .dsl import evaluate, parse
 from .generators import generators
-from .meta import Algorithm, AlgorithmValue, Env
+from .meta import Algorithm, AlgorithmValue, Env, Meta
 
-__all__ = ["Registry", "TorchRegistry"]
+__all__ = ["Registry", "TorchRegistry", "create_algo"]
 
 
 class Registry:
@@ -167,3 +169,24 @@ class TorchRegistry(Registry):
             self.register(cls)
         for module in (lz78_tries, hash_axes, textds_algo, lz78u, lfs, lfs2, generators):
             module.register(self)
+
+
+def create_algo(cls_or_id, options: str = "", registry: Optional[Registry] = None, device="cuda"):
+    """Instantiate an algorithm directly with an options string.
+
+    Mirror of create_algo<T>(options) (include/tudocomp/CreateAlgorithm.hpp:118),
+    the JAX package's registry.create_algo: an id string selects through
+    the registry under its algorithm's type (a compressor where the name
+    is unknown), a class is instantiated with `options`. The registry is
+    the one given, else a TorchRegistry bound to `device`."""
+    reg = registry or TorchRegistry(device)
+    if isinstance(cls_or_id, str):
+        meta_type = "compressor"
+        try:
+            meta_type = reg.find_class(parse(cls_or_id).name).meta().type
+        except KeyError:
+            pass
+        return reg.select(cls_or_id, meta_type)
+    meta: Meta = cls_or_id.meta()
+    id_string = f"{meta.name}({options})" if options else meta.name
+    return cls_or_id(Env(reg, evaluate(parse(id_string), meta.type, reg)))
