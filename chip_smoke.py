@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (tudocomp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns PARENT   # kernels A-J and P7 of PARENT's checkout and this one, in turns
-    python3 chip_smoke.py --dh ROOT        # kernels A-J and P7 of ROOT's checkout, one JSON line
+    python3 chip_smoke.py --turns PARENT   # kernels A-J, P7 and P8 of PARENT's checkout and this one, in turns
+    python3 chip_smoke.py --dh ROOT        # the same of ROOT's checkout, one JSON line
     python3 chip_smoke.py --j              # kernel J's device ms on phase 16's English text, one JSON line
     python3 chip_smoke.py --rank DIR WORLD PORT RANK   # one gloo rank of phase 19 (the script starts them)
     python3 chip_smoke.py --full           # the run, with the gate sweeps and the stage breakdowns
@@ -88,7 +88,12 @@ line each:
                     equal;
   9. probes         every kernel of csrc/probes.cu against its plain version
                     on the card at the probe scripts' own shapes, exactly;
-                    the gather also on random indices over whole rows and
+                    k_c and k_d also on tests/torch_cases.py's p8_cases
+                    (random and extreme values, 1 to 300 tiles, rows of
+                    100, 384, 1667 and 5001 words, v off a 16-byte
+                    bound; k_d and its plain version raising IndexError
+                    on the row of 100); the gather also on random
+                    indices over whole rows and
                     on probes.gather_cases's edge shapes, with the arm each
                     tile took (staged or direct) held to probes.gather_arms,
                     a bad index raising IndexError and the next call right;
@@ -97,9 +102,11 @@ line each:
                     probe kernel launched; their times (wrapper ms by CUDA
                     events, device ms by torch.profiler), bounds (the
                     gather's sector floor beside its bound) and, for the
-                    gather and the two rolls, the one PyTorch call for the
-                    same function (torch.gather, torch.roll) timed in
-                    turns; the pack kernel of probe 7 by level (wrapper,
+                    gather, the two rolls, k_extract and k_bid, the one
+                    PyTorch call for the same function (torch.gather,
+                    torch.roll, torch.mul of the broadcast element,
+                    repeat of the last lane) timed in turns; the pack
+                    kernel of probe 7 by level (wrapper,
                     kernel and call device ms) with its wrapper's host
                     parts; the launch path's host cost;
  10. suffix stack   16 MiB of the English stand-in and 16 MiB of a seeded
@@ -255,12 +262,13 @@ failure raises: the script then exits non-zero and prints no final line.
 jax and the JAX package (tudocomp_tpu) are blocked from import for the
 whole run.
 
---turns PARENT compares kernels A-J and P7 of two checkouts on one card: it
-runs this script with --dh in a process of its own for PARENT, this
+--turns PARENT compares kernels A-J, P7 and P8 of two checkouts on one card:
+it runs this script with --dh in a process of its own for PARENT, this
 checkout, this checkout and PARENT, in that order. --dh ROOT builds ROOT's
 kernels and times, first (late in a long process the profiler drops
-events), J on phase 16's four 16 MiB inputs and I on each device round of
-phase 12's 16 MiB grammar (device ms by __global__ function under either
+events), the four P8 kernels at the probe's shape (p8_timing, with their
+registers and spills: ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
+round of phase 12's 16 MiB grammar (device ms by __global__ function under either
 design's names), then C on phase 2's histograms, G and the shared table's stage
 (shared_tables, which is C's int64 instance where the checkout has one) on
 their summed row, phase 3's 64 MiB encode through the driver, per-block
@@ -697,6 +705,11 @@ def kernel_bytes(name: str, args, out) -> int:
         S, idx = args
         rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * S.shape[1]
         return nbytes(idx) + nbytes(out) + 4 * int(torch.unique(idx.to(torch.int64) + rows).numel())
+    if name in ("probe8_c", "probe8_d"):  # the ints of v the result depends on, the words and the carry written
+        B, T, rows, lanes = args[0].shape
+        if name == "probe8_c":  # row 7 of every tile and row 0 of the last
+            return 4 * B * (T + 1 if T else 0) * lanes + nbytes(out)
+        return 4 * B * T * rows + nbytes(out)  # lane 0 of every row of every tile
     return nbytes(args) + nbytes(out)
 
 
@@ -1091,7 +1104,9 @@ def host_plcp(text, sa):
 
 
 def dh_phase(dev, gpu, package: str) -> dict:
-    """Kernels A-J and P7 alone, from the package first on sys.path: J on
+    """Kernels A-J, P7 and P8 alone, from the package first on sys.path:
+    the P8 kernels at the probe's shape (p8_timing) with their registers
+    and spills (ptxas_report), then J on
     phase 16's four 16 MiB inputs (j_timing) and I on each device round of
     phase 12's 16 MiB grammar (i_timing), first; C, G
     and the shared table's stage (table_timing); A and B at phase 2's
@@ -1107,13 +1122,15 @@ def dh_phase(dev, gpu, package: str) -> dict:
     import numpy as np
     import torch
 
-    from tudocomp_tpu_torch import probes
+    from tudocomp_tpu_torch import kernels, probes
     from tudocomp_tpu_torch.ds import suffix_array as sa_mod
     from tudocomp_tpu_torch.ds.suffix_array import suffix_array_device
     from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
     from tudocomp_tpu_torch.ops import plcp_torch
 
-    mtf, esp = j_timing(dev), i_timing(dev)  # first: late in a long process the profiler drops events
+    p8 = p8_timing(probes, dev)  # first: late in a long process the profiler drops events
+    p8_ptxas = ptxas_report(kernels, "probes.cu", [DEVICE_FNS[f"probe8_{x}"][0] for x in "abcd"])
+    mtf, esp = j_timing(dev), i_timing(dev)
     torch.cuda.empty_cache()
     tables = table_timing(dev)
     pack = pack_timing(dev)
@@ -1163,7 +1180,9 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p7 = p7_timing(probes, *probes.probe7_inputs(dev))
     torch.cuda.empty_cache()
     no_jax()
-    return {"phase": "kernels A-J and P7", "package": package, "mtf_encode": mtf, "esp_adjust_windows": esp,
+    return {"phase": "kernels A-J, P7 and P8", "package": package, "probe8": p8, "probe8_ptxas": p8_ptxas,
+            "mtf_encode": mtf,
+            "esp_adjust_windows": esp,
             "tables": tables, "encode": encode, **pack,
             "decode": dec, "plcp": h,
             "lcp_device_stage_best_of_3_s": stage, "lzw_parse": f, "lz78_parse": e, "probe7_pack": p7,
@@ -1288,8 +1307,9 @@ def dh_main(root: str) -> int:
 
 
 def turns_main(parent: str) -> int:
-    """--turns PARENT: dh_phase of the checkout at PARENT and of this one in
-    turns (parent, this, this, parent), each in a process of its own."""
+    """--turns PARENT: dh_phase of the checkout at PARENT and of
+    this one in turns (parent, this, this, parent), each in a process of
+    its own."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2054,6 +2074,59 @@ def p7_timing(probes, vals, nbits) -> dict:
     return out
 
 
+def p8_timing(probes, dev) -> dict:
+    """The four P8 kernels on the probe's [2, 3, 8, 128] ones, arena of
+    P8_NWP words: each held to its plain version, then its wrapper ms (CUDA
+    events; the median of five runs, each run listed), the host
+    microseconds a call takes to return (host_us: a flagged launch waits
+    for the card) and device ms (torch.profiler, the kernel's __global__)."""
+    import torch
+
+    v8 = torch.ones((probes.P8_B, probes.P8_T, probes.ROWS, probes.LANES), dtype=torch.int32, device=dev)
+    out = {}
+    for name, kernel, plain in (("probe8_a", probes.carry_revisit, probes.carry_revisit_plain),
+                                ("probe8_b", probes.carry_scans, probes.carry_scans_plain),
+                                ("probe8_c", probes.carry_into_vector, probes.carry_into_vector_plain),
+                                ("probe8_d", probes.rmw_loop8, probes.rmw_loop8_plain)):
+        if max_abs_err(kernel(v8), plain(v8)):
+            raise AssertionError(f"{name} differs from its plain version")
+        runs = [cuda_ms(lambda: kernel(v8), max_iters=200) for _ in range(5)]
+        out[name] = {"ms": sorted(runs)[2], "ms_runs": runs, "host_us": host_us(lambda: kernel(v8)),
+                     **device_time(lambda: kernel(v8), name, iters=20)}
+    return out
+
+
+def ptxas_report(kernels, source: str, fns) -> dict:
+    """Registers, spills and shared memory of the __global__ functions
+    `fns` of csrc/`source`, from nvcc -Xptxas -v with the package's flags
+    (the object goes to the package's build directory)."""
+    import re
+
+    obj = os.path.join(kernels._BUILD_DIR, f"ptxas_{os.getpid()}.o")
+    os.makedirs(kernels._BUILD_DIR, exist_ok=True)
+    r = subprocess.run([kernels._nvcc(), *kernels._FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                        os.path.join(kernels._SRC_DIR, source)], capture_output=True, text=True)
+    if os.path.exists(obj):
+        os.remove(obj)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {source} failed:\n{r.stderr[-3000:]}")
+    out, fn = {}, None
+    for line in r.stderr.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = next((f for f in fns if re.search(rf"\d{f}E", m.group(1))), None)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(fn, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            out.setdefault(fn, {}).update(registers=int(m.group(1)), smem_bytes=int(m.group(2) or 0))
+    return out
+
+
 def p7_host_split(vals, nbits) -> dict:
     """Host microseconds of the parts of a level-5 pack_levels call: the
     whole wrapper (it waits for the card), its checks, its allocations, the
@@ -2123,6 +2196,9 @@ def probes_phase(dev, gpu):
     i300 = torch.tensor([[300]], dtype=torch.int32, device=dev)
     vals7, nbits7 = probes.probe7_inputs(dev)
     v8 = torch.ones((probes.P8_B, probes.P8_T, probes.ROWS, probes.LANES), dtype=torch.int32, device=dev)
+    from tests import torch_cases
+
+    p8 = torch_cases.p8_cases(dev)
 
     def p7(fn, level):
         return lambda v, nb: fn(v, nb, probes.P7_NWP, level, want_mid=True)
@@ -2142,8 +2218,12 @@ def probes_phase(dev, gpu):
                         for lv in (5, 4, 3, 2, 1)],
         "probe8_a": [((v8,), probes.carry_revisit, probes.carry_revisit_plain)],
         "probe8_b": [((v8,), probes.carry_scans, probes.carry_scans_plain)],
-        "probe8_c": [((v8,), probes.carry_into_vector, probes.carry_into_vector_plain)],
-        "probe8_d": [((v8,), probes.rmw_loop8, probes.rmw_loop8_plain)],
+        "probe8_c": [((v8,), probes.carry_into_vector, probes.carry_into_vector_plain),
+                     *(((v, n_wp), probes.carry_into_vector, probes.carry_into_vector_plain)
+                       for v, n_wp in p8.values())],
+        "probe8_d": [((v8,), probes.rmw_loop8, probes.rmw_loop8_plain),
+                     *(((v, n_wp), probes.rmw_loop8, probes.rmw_loop8_plain)
+                       for v, n_wp in p8.values() if n_wp >= probes.WIN)],
     }
 
     def tensors(out):
@@ -2157,6 +2237,18 @@ def probes_phase(dev, gpu):
     torch.cuda.synchronize()
     if any(errs.values()):
         raise AssertionError(f"probe kernels differ from their plain versions: {errs}")
+    # k_d's window does not fit a row of 100 words: the wrapper raises before a launch, as the plain version does
+    short = [(v, n_wp) for v, n_wp in p8.values() if n_wp < probes.WIN]
+    before = kernels.counts()["probe8_d"]
+    for v, n_wp in short:
+        for fn in (probes.rmw_loop8, probes.rmw_loop8_plain):
+            try:
+                fn(v, n_wp)
+                raise AssertionError(f"{fn.__name__} took a row of {n_wp} words")
+            except IndexError:
+                pass
+    if not short or kernels.counts()["probe8_d"] != before:
+        raise AssertionError("k_d's short row was not checked before the launch")
     # level 5 packs what kernel A packs
     from tudocomp_tpu_torch.ops import bitpack_cuda as bc
 
@@ -2224,8 +2316,12 @@ def probes_phase(dev, gpu):
         "probe3_gather": (lambda: probes.gather(S, idx), lambda: torch.gather(S, 1, idx64)),
         "probe6_roll_lane": (lambda: probes.roll_lane(x8), lambda: torch.roll(x8, 1, 1)),
         "probe6_roll_sublane": (lambda: probes.roll_sublane(x8), lambda: torch.roll(x8, 1, 0)),
+        "probe6_extract": (lambda: probes.scalar_extract(x8), lambda: torch.mul(x8[7:8, :1].expand(8, 128), 2)),
+        "probe6_bid": (lambda: probes.broadcast_last_lane(x8), lambda: x8[:, -1:].repeat(1, 128)),
     }
     for name, (kernel, lib) in library.items():
+        if max_abs_err(kernel(), lib()):
+            raise AssertionError(f"{name}: the PyTorch call computes another function")
         timing[name].update(in_turns(kernel, lib, max_iters=200))
     timing["probe3_gather"]["library_with_index_cast_ms"] = cuda_ms(lambda: torch.gather(S, 1, idx.to(torch.int64)))
     direct = {**in_turns(lambda: probes.gather(S, rand_idx), lambda: torch.gather(S, 1, rand_idx64), max_iters=200),

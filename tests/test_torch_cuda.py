@@ -455,13 +455,11 @@ def test_probe7_pack_kernel_tiles(dev, nt, widths):
 
 
 def test_probe8_kernels(dev):
+    """The four probe8 kernels against their plain versions on
+    tc.p8_cases; k_d and its plain version both raise IndexError on a row
+    shorter than its window, before any launch."""
     from tudocomp_tpu_torch import probes
 
-    rng = np.random.default_rng(8)
-    inputs = [
-        torch.ones((2, 3, 8, 128), dtype=torch.int32, device=dev),
-        torch.from_numpy(rng.integers(0, 33, (5, 4, 8, 128)).astype(np.int32)).to(dev),
-    ]
     pairs = [
         (probes.carry_revisit, probes.carry_revisit_plain, "probe8_a"),
         (probes.carry_scans, probes.carry_scans_plain, "probe8_b"),
@@ -469,10 +467,18 @@ def test_probe8_kernels(dev):
         (probes.rmw_loop8, probes.rmw_loop8_plain, "probe8_d"),
     ]
     kernels.reset_counts()
-    for v in inputs:
-        for kernel, plain, _ in pairs:
-            _equal(kernel(v), plain(v))
-    assert all(kernels.counts()[name] == 2 for _, _, name in pairs)
+    want = {name: 0 for _, _, name in pairs}
+    for case, (v, n_wp) in tc.p8_cases(dev).items():
+        for kernel, plain, name in pairs:
+            if name == "probe8_d" and n_wp < probes.WIN:
+                for fn in (kernel, plain):
+                    with pytest.raises(IndexError, match="window outside the row"):
+                        fn(v, n_wp)
+                continue
+            got, ref = kernel(v, n_wp), plain(v, n_wp)
+            assert all(torch.equal(g.cpu(), r.cpu()) for g, r in zip(got, ref)), (case, name)
+            want[name] += 1
+    assert {name: kernels.counts()[name] for name in want} == want
 
 
 def test_probes_entry_point_on_the_card(dev, capsys):

@@ -16,7 +16,10 @@ Two kinds of checks, each case its own test:
     stand-ins and tensors that say they lie on card 1 while card 0 is
     current: the stream of card 1 is passed, card 1 is current for the
     call and card 0 again after it (also after an error), card 1's flag
-    word is used and waited for, and tensors on two cards raise.
+    word is used and waited for, and tensors on two cards raise;
+  - probes.rmw_loop8 against the fake: a row shorter than its 384-word
+    window raises IndexError before any launch, a whole one launches
+    once through kernels.launch, with no flag word and no stream wait.
 The `cuda` tests at the end need a card and skip here:
 
     python -m pytest tests/test_torch_launch.py -q             # here
@@ -327,6 +330,35 @@ DEVICE_CASES = {
 @pytest.mark.parametrize("case", list(DEVICE_CASES))
 def test_launch_on_the_tensors_device(fake, case):
     DEVICE_CASES[case](fake)
+
+
+def _calls(lib):
+    """Every call the fake library took, by function name."""
+    return [name for name, fn in lib.fns.items() for _ in fn.calls]
+
+
+@pytest.mark.parametrize("n_wp", [383, 384])
+def test_rmw_loop8_launch_against_a_fake_library(fake, monkeypatch, n_wp):
+    """probes.rmw_loop8 on a card tensor: a row shorter than the window
+    raises IndexError before any launch; a whole one launches
+    tdc_probe8_d once through kernels.launch, with no flag word and no
+    stream wait."""
+    from tudocomp_tpu_torch import probes
+
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype=None, device=None: _on_card(
+        real_empty(shape, dtype=dtype), device.index))
+    v = _on_card(torch.ones((2, 3, 8, 128), dtype=torch.int32), 0)
+    if n_wp < probes.WIN:
+        with pytest.raises(IndexError, match="window outside the row"):
+            probes.rmw_loop8(v, n_wp)
+        assert _calls(fake) == [] and kernels.counts()["probe8_d"] == 0
+        return
+    words, carry = probes.rmw_loop8(v, n_wp)
+    assert words.shape == (2, 1, n_wp) and carry.shape == (2,)
+    assert fake.tdc_probe8_d.calls == [(v.data_ptr(), 2, 3, n_wp, words.data_ptr(), carry.data_ptr(), 0xABC)]
+    assert fake.tdc_mapped_word.calls == [] and fake.tdc_stream_wait.calls == []
+    assert kernels.counts()["probe8_d"] == 1
 
 
 # ---- on the card ------------------------------------------------------------------------------

@@ -512,10 +512,11 @@ def _probe8_inputs():
     return {
         "ones": np.ones((2, 3, 8, 128), np.int32),
         "random": rng.integers(0, 33, (2, 3, 8, 128)).astype(np.int32),
+        "extremes": rng.choice(tc.P8_EXTREMES, (2, 3, 8, 128)),
     }
 
 
-@pytest.mark.parametrize("data", ["ones", "random"])
+@pytest.mark.parametrize("data", ["ones", "random", "extremes"])
 @pytest.mark.parametrize("name", ["k_a", "k_b", "k_c", "k_d"])
 def test_probe8_steps_match_pallas(name, data):
     (kernel,) = _functions("probe8.py", [name])
@@ -525,11 +526,28 @@ def test_probe8_steps_match_pallas(name, data):
     words, carry = port(_t(v))
     assert words.shape == (2, 1, probes.P8_NWP)
     np.testing.assert_array_equal(_u32(words.numpy()), np.asarray(_probe8_pallas(kernel, v)))
-    want_carry = {
+    want_carry = {  # the scripts' int32 carry: sums wrap
         "k_a": v[:, :, 0, 0].sum(1), "k_b": v.sum((1, 2, 3)),
         "k_c": v[:, :, 7, :].sum((1, 2)), "k_d": np.zeros(2),
-    }[name]
+    }[name].astype(np.int64).astype(np.int32)
     np.testing.assert_array_equal(carry.numpy(), want_carry)
+
+
+@pytest.mark.parametrize("n_wp", [383, 384, 1667])
+def test_probe8_rmw_loop8_needs_a_whole_window(n_wp):
+    """Every window starts at word 0 ((v * 3) mod 8 >> 7 is 0), so the row
+    needs 384 words: 383 raises, 384 and more hold the windows' XOR."""
+    v = _probe8_inputs()["extremes"]
+    if n_wp < probes.WIN:
+        with pytest.raises(IndexError, match="window outside the row"):
+            probes.rmw_loop8(_t(v), n_wp)
+        return
+    words, carry = probes.rmw_loop8(_t(v), n_wp)
+    want = np.zeros((2, 1, n_wp), np.uint32)
+    # each tile XORs 1 ^ 2 ^ ... ^ 8 = 8 into the window; 3 tiles leave 8
+    want[:, :, : probes.WIN] = np.bitwise_xor.reduce(np.arange(1, 9, dtype=np.uint32)) if v.shape[1] % 2 else 0
+    np.testing.assert_array_equal(_u32(words.numpy()), want)
+    np.testing.assert_array_equal(carry.numpy(), np.zeros(2, np.int32))
 
 
 def test_probes_entry_point_runs_on_the_cpu(capsys):

@@ -6,7 +6,8 @@ Kernels C and G: histogram rows at the edges of the Moffat chain.
 Kernel D: one Huffman stream per case, as the tables and words
 parse_payload_tables gives (or made by hand where a payload cannot say it),
 with the bytes it must decode to. Kernel H: sentinel-terminated texts.
-Kernel J: inputs at the edges of its chunks.
+Kernel J: inputs at the edges of its chunks. The probe8 kernels: tiles and
+rows at the edges of their schedules.
 """
 
 import numpy as np
@@ -224,6 +225,47 @@ def p7_tokens(nt: int, widths: str, seed: int = 0):
         row[-1] = 0
         row[-1] = (1 - row.sum()) % 32
     return vals, nbits
+
+
+# ---- probe8's tile steps ---------------------------------------------------------------------
+
+# int32's ends, -1, 0 and the values around +-2^31 / 3, where v * 3 wraps
+P8_EXTREMES = np.array([-(1 << 31), (1 << 31) - 1, -1, 0, 715827882, 715827883, -715827882, -715827883,
+                        -715827884, 715827881], np.int64).astype(np.int32)
+
+
+def p8_cases(device="cpu", seed: int = 8) -> dict:
+    """name -> (v [B, T, 8, 128] int32, n_wp) for the probe8 kernels: the
+    probe's shape of ones, random and extreme values, one tile, more tiles
+    than k_c's warps (31) and more windows than k_d stages at once (2048),
+    rows narrower than k_c's 128 lanes (k_d raises there), of exactly one
+    window, of lengths whose rows start off a 16-byte bound (one of them
+    wider than k_c's zeroing CTA), and v itself off a 16-byte bound."""
+    rng = np.random.default_rng(seed)
+
+    def rand(B, T, lo=0, hi=33):
+        return rng.integers(lo, hi, (B, T, 8, 128)).astype(np.int32)
+
+    cases = {
+        "ones": (np.ones((2, 3, 8, 128), np.int32), 1664),
+        "random": (rand(5, 4), 1664),
+        "random int32": (rand(2, 3, -(1 << 31), 1 << 31), 1664),
+        "extremes": (rng.choice(P8_EXTREMES, (2, 3, 8, 128)), 1664),
+        "T = 1": (rand(3, 1), 1664),
+        "T = 9": (rand(2, 9), 1664),
+        "T = 40": (rand(2, 40, -(1 << 31), 1 << 31), 1664),
+        "T = 300": (rand(1, 300), 1664),
+        "n_wp 100": (rand(2, 3), 100),
+        "n_wp 384": (rand(2, 3), 384),
+        "n_wp 1667": (rand(5, 3), 1667),
+        "n_wp 5001": (rand(3, 2, -(1 << 31), 1 << 31), 5001),
+    }
+    out = {name: (torch.from_numpy(v).to(device), n_wp) for name, (v, n_wp) in cases.items()}
+    v = torch.from_numpy(rand(2, 3, -(1 << 31), 1 << 31).reshape(-1)).to(device)
+    off = torch.empty(v.numel() + 1, dtype=torch.int32, device=device)[1:]
+    off.copy_(v)
+    out["v off a bound"] = (off.view(2, 3, 8, 128), 1664)
+    return out
 
 
 def _tune_tiles(nbits: np.ndarray, residue: int, tile: int) -> None:

@@ -25,13 +25,15 @@
 //   - The one-hot products on the matrix unit, which scattered counts and
 //     word parts, are atomicAdd / atomicXor into shared memory.
 //   - The TPU grid ran its tile axis in order and carried a scalar in SMEM
-//     from one step to the next; here probe8's CTA owns a block and loops
-//     over its tiles with the carry in a register, and the pack of probe7
+//     from one step to the next; here probe8's CTA owns a block: k_a and k_b
+//     loop over its tiles with the carry in a register, k_c reads only the
+//     rows that carry its result, a warp a tile, and the pack of probe7
 //     runs all tiles at once, a CTA summing the widths before its tile.
-//   - The dynamic-slice read-modify-write of a 384-word window becomes
-//     XORs at computed offsets (atomicXor where windows may overlap).
-// A kernel that finds a bad input (the gather, rmw, the pack at level 1-5,
-// k_d) stores 1 into `err`, a word of pinned host memory mapped for the card
+//   - The dynamic-slice read-modify-write of a 384-word window becomes,
+//     for k_d, each word's XOR of the windows that cover it, stored once;
+//     for k_rmw, XORs at the one computed offset.
+// A kernel that finds a bad input (the gather, rmw, the pack at level 1-5)
+// stores 1 into `err`, a word of pinned host memory mapped for the card
 // (csrc/launch.cu): a plain store, never an atomic, which the host reads
 // after it has waited for the stream.
 // Bound on the H100: the gather by the bytes it moves; every other kernel
@@ -87,17 +89,6 @@ __device__ T tile_inclusive_scan(T x, T* s_warp, T* total) {
   __syncthreads();
   incl += s_warp[warp];
   *total = s_warp[32];
-  __syncthreads();
-  return incl;
-}
-
-// Inclusive scan along the 128 lanes of each row (4 warps a row).
-__device__ int row_inclusive_scan(int x, int* s_warp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = warp_inclusive_scan(x);
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  for (int w = warp & ~3; w < warp; ++w) incl += s_warp[w];
   __syncthreads();
   return incl;
 }
@@ -537,9 +528,9 @@ p7_pack_kernel(const uint32_t* __restrict__ vals, const int32_t* __restrict__ nb
 
 // ---- etc/probe8.py: the pack kernel's infrastructure, in four steps ----------
 //
-// v [B, T, 8, 128] int32; words [B, n_wp] (zeroed here, as the scripts' first
-// grid step does); carry [B] is the scalar the scripts carried and never
-// stored, given out so that it can be checked.
+// v [B, T, 8, 128] int32; words [B, n_wp] (every word written here, as the
+// scripts' first grid step zeroed them); carry [B] is the scalar the scripts
+// carried and never stored, given out so that it can be checked.
 
 // a: the carry alone: the sum of v[b, t, 0, 0] over the tiles
 __global__ void __launch_bounds__(TILE)
@@ -570,47 +561,153 @@ p8_b_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_o
   if (tid == 0) carry_out[b] = carry;
 }
 
-// c: the carry, read before the scan, is added into the lane scan, and row 0
-// of the sum is stored in words[0 .. 128); the carry takes row 7's total
-__global__ void __launch_bounds__(TILE)
-p8_c_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
-  __shared__ int s_warp[33];
-  __shared__ int s_row7;
-  const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < n_wp; j += TILE) words[b * n_wp + j] = 0;
-  __syncthreads();
-  int carry = 0;
-  for (int t = 0; t < T; ++t) {
-    const int x = row_inclusive_scan(v[(b * T + t) * TILE + tid], s_warp);
-    if (tid < LANES && tid < n_wp) words[b * n_wp + tid] = (uint32_t)(carry + x);
-    if (tid == TILE - 1) s_row7 = x;
-    __syncthreads();
-    carry += s_row7;
-    __syncthreads();
-  }
-  if (tid == 0) carry_out[b] = carry;
+// c: words[0 .. k) = c0 + the lane scan of row 0 of the last tile, k = min(128, n_wp),
+// c0 the sum of row 7 over the tiles before the last; the other words 0; the carry row
+// 7's sum over every tile. The Pallas body walked the tiles in order, scanned all 8 rows
+// of each and rewrote words[0 .. 128) each step. Only row 7 of every tile and row 0 of
+// the last one carry the result, and each tile's row-7 sum stands alone, so CTA (b, 0)
+// reads T x 128 + 128 ints, not T x 1024: warp w < R (R = min(T, 31), blockDim 32 (R + 1))
+// reduces row 7 of tiles w, w + R, ... (4 ints a lane, __reduce_add_sync), and warp R
+// scans row 0 of the last tile (4 ints a lane, then the lanes' sums by shuffles). The
+// sums meet in shared memory across one barrier, and warp R stores words[0 .. k) and the
+// carry. CTAs (b, 1 ..) store the zeros, P8C_ZERO_WORDS each, in 16-byte stores: issued
+// by the scanning CTA, they delay its loads. Every word is stored once. Sums are u32,
+// JAX's wrapped int32 adds. Bound on the H100: a launch, one load and one barrier.
+constexpr int P8C_MAX_WARPS = 32;
+constexpr int P8C_ZERO_WORDS = 2048;  // zeros a CTA of grid row y > 0 stores
+
+// row[lo .. n) = 0, each word once, by threads tid of nthreads: 16-byte stores
+// between the 16-byte bounds, scalar words before the first and after the last.
+__device__ __forceinline__ void zero_words(uint32_t* row, int lo, int n, int tid, int nthreads) {
+  if (lo >= n) return;
+  const int head = min(n, lo + (int)((4 - (((uintptr_t)(row + lo) >> 2) & 3)) & 3));
+  const int nvec = (n - head) >> 2;
+  if (tid < head - lo) row[lo + tid] = 0;
+  uint4* vec = reinterpret_cast<uint4*>(row + head);
+  for (int i = tid; i < nvec; i += nthreads) vec[i] = make_uint4(0, 0, 0, 0);
+  if (tid < n - head - 4 * nvec) row[head + 4 * nvec + tid] = 0;
 }
 
-// d: eight windowed XOR read-modify-writes a tile, at offsets taken out of a
-// computed vector: words[a_g .. a_g + 384) ^= g + 1, a_g = (base[g, 0] >> 7) * 128
-// with base = (v * 3) mod 8. Windows of different g may overlap: atomicXor.
-__global__ void __launch_bounds__(TILE)
-p8_d_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out, int32_t* err) {
+// 4 consecutive ints of v from p, as one 16-byte load where `vec` says p's row is on a bound
+__device__ __forceinline__ uint4 load4(const int32_t* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  return make_uint4((uint32_t)p[0], (uint32_t)p[1], (uint32_t)p[2], (uint32_t)p[3]);
+}
+
+__global__ void __launch_bounds__(P8C_MAX_WARPS * 32)
+p8_c_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
+  __shared__ uint32_t s_before[P8C_MAX_WARPS];  // warp w's row-7 sums of its tiles before the last
+  __shared__ uint32_t s_last;                   // row 7's sum of the last tile
   const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x, g = tid >> 7, c = tid & 127;
-  for (int j = tid; j < n_wp; j += TILE) words[b * n_wp + j] = 0;
-  __syncthreads();
-  for (int t = 0; t < T; ++t) {
-    const int base = floor_mod(v[(b * T + t) * TILE + g * LANES] * 3, 8);
-    const int a = (base >> 7) * 128;
-    if (a + WIN > n_wp) {
-      if (c == 0) *reinterpret_cast<volatile int32_t*>(err) = 1;
-      continue;
-    }
-    for (int j = c; j < WIN; j += LANES) atomicXor(&words[b * n_wp + a + j], (uint32_t)(g + 1));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, R = (blockDim.x >> 5) - 1;
+  uint32_t* row = words + b * n_wp;
+  const int k = T > 0 ? min(LANES, n_wp) : 0;
+  if (blockIdx.y > 0) {
+    const int lo = k + (int)(blockIdx.y - 1) * P8C_ZERO_WORDS;
+    zero_words(row, lo, min(n_wp, lo + P8C_ZERO_WORDS), tid, blockDim.x);
+    return;
   }
-  if (tid == 0) carry_out[b] = 0;
+  if (T == 0) {  // no tile: the Pallas grid never ran
+    if (tid == 0) carry_out[b] = 0;
+    return;
+  }
+  const int32_t* vb = v + b * T * TILE;
+  const bool vec = ((uintptr_t)v & 15) == 0;  // every row of v then starts on a 16-byte bound
+  uint4 x = make_uint4(0, 0, 0, 0);
+  if (warp < R) {
+    uint32_t before = 0;
+    for (int t = warp; t < T; t += R) {
+      const uint4 r = load4(vb + (int64_t)t * TILE + 7 * LANES + 4 * lane, vec);
+      const uint32_t sum = __reduce_add_sync(FULL, r.x + r.y + r.z + r.w);
+      if (t < T - 1) before += sum;
+      else if (lane == 0) s_last = sum;
+    }
+    if (lane == 0) s_before[warp] = before;
+  } else {
+    x = load4(vb + (int64_t)(T - 1) * TILE + 4 * lane, vec);
+    x.y += x.x;
+    x.z += x.y;
+    x.w += x.z;
+    const uint32_t ex = warp_inclusive_scan(x.w) - x.w;
+    x.x += ex;
+    x.y += ex;
+    x.z += ex;
+    x.w += ex;
+  }
+  __syncthreads();
+  if (warp < R) return;
+  const uint32_t c0 = __reduce_add_sync(FULL, lane < R ? s_before[lane] : 0u);
+  x.x += c0;
+  x.y += c0;
+  x.z += c0;
+  x.w += c0;
+  if (k == LANES && (((uintptr_t)row & 15) == 0)) {
+    reinterpret_cast<uint4*>(row)[lane] = x;
+  } else {
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * lane + i < k) row[4 * lane + i] = xs[i];
+  }
+  if (lane == 0) carry_out[b] = (int32_t)(c0 + s_last);
+}
+
+// d: eight windowed XOR read-modify-writes a tile: words[a .. a + 384) ^= g + 1 for
+// every tile t and row g, a = (base >> 7) * 128 with base = (v[t, g, 0] * 3) mod 8, over
+// a zeroed arena. The windows of one row overlap, so the old design zeroed the arena,
+// then XORed with atomics (24 a word at the probe's shape, serialised in L2). Here each
+// word's value is the XOR of the values of the windows that cover it, and each thread
+// owns 4 consecutive words (one 16-byte group; a scalar head and tail where the row is
+// off a bound), folds the windows into them in registers and stores each word once.
+// Each warp stages 32 windows at a time, a lane each (one read of v), and broadcasts
+// their starts by shuffles: no shared memory and no barrier. A window covers whole
+// 128-word blocks (a and 384 are multiples of 128), so two compares a window, for the
+// group's first and last word, settle all four. No memset, no atomics, no flag: base < 8,
+// so a is 0 for every v and the wrapper checks n_wp >= 384 before the launch; the kernel
+// still computes a. v * 3 is taken in u32: (v * 3) mod 8 of the wrapped int32 product, as
+// JAX has it. Grid (B, word groups / P8D_THREADS): small CTAs spread the folding over
+// more SMs. Bound on the H100: a launch and one load.
+constexpr int P8D_THREADS = 128;
+
+__global__ void __launch_bounds__(P8D_THREADS)
+p8_d_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  uint32_t* row = words + b * n_wp;
+  // group q holds the words j = 4q - off .. 4q - off + 3, 16-byte aligned
+  const int off = (int)(((uintptr_t)row >> 2) & 3);
+  const int j0 = 4 * (int)(blockIdx.y * P8D_THREADS + tid) - off;
+  const int nw = T * ROWS;  // windows: w = t * 8 + g
+  uint32_t x0 = 0, x3 = 0;  // words j0 and j0 + 3
+  for (int c = 0; c < nw; c += 32) {
+    int a_lane = 0;  // the start of window c + lane
+    if (c + lane < nw) {
+      const int w = c + lane;
+      const uint32_t base = ((uint32_t)v[(b * T + (w >> 3)) * TILE + (w & 7) * LANES] * 3u) & 7u;
+      a_lane = (int)(base >> 7) * LANES;
+    }
+    const int n = min(32, nw - c);  // a multiple of 8: window c + i + g is row g
+    for (int i = 0; i < n; i += ROWS) {
+#pragma unroll
+      for (int g = 0; g < ROWS; ++g) {
+        const int a = __shfl_sync(FULL, a_lane, i + g);
+        x0 ^= (uint32_t)(j0 - a) < (uint32_t)WIN ? g + 1u : 0u;
+        x3 ^= (uint32_t)(j0 + 3 - a) < (uint32_t)WIN ? g + 1u : 0u;
+      }
+    }
+  }
+  const uint32_t x1 = ((j0 + 1) >> 7) == (j0 >> 7) ? x0 : x3;
+  const uint32_t x2 = ((j0 + 2) >> 7) == (j0 >> 7) ? x0 : x3;
+  if (blockIdx.y == 0 && tid == 0) carry_out[b] = 0;
+  if (j0 >= n_wp) return;
+  if (j0 >= 0 && j0 + 4 <= n_wp) {
+    *reinterpret_cast<uint4*>(row + j0) = make_uint4(x0, x1, x2, x3);
+  } else {
+    const uint32_t xs[4] = {x0, x1, x2, x3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (j0 + i >= 0 && j0 + i < n_wp) row[j0 + i] = xs[i];
+  }
 }
 
 inline int last_error() { return (int)cudaGetLastError(); }
@@ -691,7 +788,7 @@ extern "C" int tdc_probe7_pack(const void* vals, const void* nbits, int B, long 
   return last_error();
 }
 
-// v [B, T, 8, 128] int32; words [B, n_wp]; carry [B]; err the mapped flag word (d only).
+// v [B, T, 8, 128] int32; words [B, n_wp]; carry [B].
 extern "C" int tdc_probe8_a(const void* v, int B, int T, int n_wp, void* words, void* carry,
                             void* stream) {
   p8_a_kernel<<<B, TILE, 0, STREAM>>>(I32(v), T, n_wp, U32W(words), I32W(carry));
@@ -704,11 +801,23 @@ extern "C" int tdc_probe8_b(const void* v, int B, int T, int n_wp, void* words, 
 }
 extern "C" int tdc_probe8_c(const void* v, int B, int T, int n_wp, void* words, void* carry,
                             void* stream) {
-  p8_c_kernel<<<B, TILE, 0, STREAM>>>(I32(v), T, n_wp, U32W(words), I32W(carry));
+  if (B <= 0) return 0;
+  const int R = T < P8C_MAX_WARPS - 1 ? T : P8C_MAX_WARPS - 1;  // warps reducing row 7
+  const int k = T > 0 ? (n_wp < LANES ? n_wp : LANES) : 0;
+  const long long gy = 1 + ((long long)n_wp - k + P8C_ZERO_WORDS - 1) / P8C_ZERO_WORDS;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  p8_c_kernel<<<dim3((unsigned)B, (unsigned)gy), 32 * (R + 1), 0, STREAM>>>(I32(v), T, n_wp, U32W(words),
+                                                                            I32W(carry));
   return last_error();
 }
+// d: the wrapper has checked n_wp >= 384 (every window fits).
 extern "C" int tdc_probe8_d(const void* v, int B, int T, int n_wp, void* words, void* carry,
-                            void* err, void* stream) {
-  p8_d_kernel<<<B, TILE, 0, STREAM>>>(I32(v), T, n_wp, U32W(words), I32W(carry), I32W(err));
+                            void* stream) {
+  if (B <= 0) return 0;
+  const long long groups = ((long long)n_wp + 6) / 4;  // ceil((n_wp + 3) / 4): a row may start 3 words off a bound
+  const long long gy = (groups + P8D_THREADS - 1) / P8D_THREADS;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  p8_d_kernel<<<dim3((unsigned)B, (unsigned)gy), P8D_THREADS, 0, STREAM>>>(I32(v), T, n_wp, U32W(words),
+                                                                            I32W(carry));
   return last_error();
 }

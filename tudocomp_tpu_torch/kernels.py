@@ -82,7 +82,7 @@ KERNELS = {
     "tdc_probe8_a": ("probe8_a", [_P, _I, _I, _I, _P, _P, _P]),
     "tdc_probe8_b": ("probe8_b", [_P, _I, _I, _I, _P, _P, _P]),
     "tdc_probe8_c": ("probe8_c", [_P, _I, _I, _I, _P, _P, _P]),
-    "tdc_probe8_d": ("probe8_d", [_P, _I, _I, _I, _P, _P, _P, _P]),
+    "tdc_probe8_d": ("probe8_d", [_P, _I, _I, _I, _P, _P, _P]),
 }
 
 # host helpers of csrc/launch.cu and csrc/lz78.cu, which launch nothing: name -> (result type, argument types)
