@@ -88,11 +88,12 @@ line each:
                     equal;
   9. probes         every kernel of csrc/probes.cu against its plain version
                     on the card at the probe scripts' own shapes, exactly;
-                    k_c and k_d also on tests/torch_cases.py's p8_cases
-                    (random and extreme values, 1 to 300 tiles, rows of
-                    100, 384, 1667 and 5001 words, v off a 16-byte
-                    bound; k_d and its plain version raising IndexError
-                    on the row of 100); the gather also on random
+                    the four P8 kernels also on tests/torch_cases.py's
+                    p8_cases (random and extreme values, 0 to 300 tiles,
+                    no rows, rows of 100, 384, 1667 and 5001 words, v off
+                    a 16-byte bound; k_d and its plain version raising
+                    IndexError on the row of 100; no launch for no rows);
+                    the gather also on random
                     indices over whole rows and
                     on probes.gather_cases's edge shapes, with the arm each
                     tile took (staged or direct) held to probes.gather_arms,
@@ -705,8 +706,10 @@ def kernel_bytes(name: str, args, out) -> int:
         S, idx = args
         rows = torch.arange(idx.shape[0], device=idx.device)[:, None] * S.shape[1]
         return nbytes(idx) + nbytes(out) + 4 * int(torch.unique(idx.to(torch.int64) + rows).numel())
-    if name in ("probe8_c", "probe8_d"):  # the ints of v the result depends on, the words and the carry written
+    if name in ("probe8_a", "probe8_c", "probe8_d"):  # the ints of v the result depends on, the words and the carry written
         B, T, rows, lanes = args[0].shape
+        if name == "probe8_a":  # lane 0 of row 0 of every tile
+            return 4 * B * T + nbytes(out)
         if name == "probe8_c":  # row 7 of every tile and row 0 of the last
             return 4 * B * (T + 1 if T else 0) * lanes + nbytes(out)
         return 4 * B * T * rows + nbytes(out)  # lane 0 of every row of every tile
@@ -2084,16 +2087,21 @@ def p8_timing(probes, dev) -> dict:
 
     v8 = torch.ones((probes.P8_B, probes.P8_T, probes.ROWS, probes.LANES), dtype=torch.int32, device=dev)
     out = {}
-    for name, kernel, plain in (("probe8_a", probes.carry_revisit, probes.carry_revisit_plain),
-                                ("probe8_b", probes.carry_scans, probes.carry_scans_plain),
-                                ("probe8_c", probes.carry_into_vector, probes.carry_into_vector_plain),
-                                ("probe8_d", probes.rmw_loop8, probes.rmw_loop8_plain)):
+    for name, kernel, plain in p8_functions(probes):
         if max_abs_err(kernel(v8), plain(v8)):
             raise AssertionError(f"{name} differs from its plain version")
         runs = [cuda_ms(lambda: kernel(v8), max_iters=200) for _ in range(5)]
         out[name] = {"ms": sorted(runs)[2], "ms_runs": runs, "host_us": host_us(lambda: kernel(v8)),
                      **device_time(lambda: kernel(v8), name, iters=20)}
     return out
+
+
+def p8_functions(probes) -> tuple:
+    """(counter name, wrapper, plain version) of the four P8 kernels."""
+    return (("probe8_a", probes.carry_revisit, probes.carry_revisit_plain),
+            ("probe8_b", probes.carry_scans, probes.carry_scans_plain),
+            ("probe8_c", probes.carry_into_vector, probes.carry_into_vector_plain),
+            ("probe8_d", probes.rmw_loop8, probes.rmw_loop8_plain))
 
 
 def ptxas_report(kernels, source: str, fns) -> dict:
@@ -2216,14 +2224,9 @@ def probes_phase(dev, gpu):
         "probe6_shift": [((x8,), probes.var_shift, probes.var_shift_plain)],
         "probe7_pack": [((vals7, nbits7), p7(probes.pack_levels, lv), p7(probes.pack_levels_plain, lv))
                         for lv in (5, 4, 3, 2, 1)],
-        "probe8_a": [((v8,), probes.carry_revisit, probes.carry_revisit_plain)],
-        "probe8_b": [((v8,), probes.carry_scans, probes.carry_scans_plain)],
-        "probe8_c": [((v8,), probes.carry_into_vector, probes.carry_into_vector_plain),
-                     *(((v, n_wp), probes.carry_into_vector, probes.carry_into_vector_plain)
-                       for v, n_wp in p8.values())],
-        "probe8_d": [((v8,), probes.rmw_loop8, probes.rmw_loop8_plain),
-                     *(((v, n_wp), probes.rmw_loop8, probes.rmw_loop8_plain)
-                       for v, n_wp in p8.values() if n_wp >= probes.WIN)],
+        **{name: [((v8,), kernel, plain), *(((v, n_wp), kernel, plain) for v, n_wp in p8.values()
+                                            if name != "probe8_d" or n_wp >= probes.WIN)]
+           for name, kernel, plain in p8_functions(probes)},
     }
 
     def tensors(out):
@@ -2249,6 +2252,14 @@ def probes_phase(dev, gpu):
                 pass
     if not short or kernels.counts()["probe8_d"] != before:
         raise AssertionError("k_d's short row was not checked before the launch")
+    # no rows: every P8 wrapper returns empty tensors (held above) and launches nothing
+    empty = [(v, n_wp) for v, n_wp in p8.values() if v.shape[0] == 0]
+    before = {name: kernels.counts()[name] for name, _, _ in p8_functions(probes)}
+    for v, n_wp in empty:
+        for _, kernel, _ in p8_functions(probes):
+            kernel(v, n_wp)
+    if not empty or {name: kernels.counts()[name] for name in before} != before:
+        raise AssertionError("a P8 wrapper launched on no rows")
     # level 5 packs what kernel A packs
     from tudocomp_tpu_torch.ops import bitpack_cuda as bc
 

@@ -457,7 +457,8 @@ def test_probe7_pack_kernel_tiles(dev, nt, widths):
 def test_probe8_kernels(dev):
     """The four probe8 kernels against their plain versions on
     tc.p8_cases; k_d and its plain version both raise IndexError on a row
-    shorter than its window, before any launch."""
+    shorter than its window, before any launch; no rows (B = 0) launch
+    nothing."""
     from tudocomp_tpu_torch import probes
 
     pairs = [
@@ -477,7 +478,7 @@ def test_probe8_kernels(dev):
                 continue
             got, ref = kernel(v, n_wp), plain(v, n_wp)
             assert all(torch.equal(g.cpu(), r.cpu()) for g, r in zip(got, ref)), (case, name)
-            want[name] += 1
+            want[name] += v.shape[0] > 0
     assert {name: kernels.counts()[name] for name in want} == want
 
 

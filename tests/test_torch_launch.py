@@ -19,7 +19,9 @@ Two kinds of checks, each case its own test:
     word is used and waited for, and tensors on two cards raise;
   - probes.rmw_loop8 against the fake: a row shorter than its 384-word
     window raises IndexError before any launch, a whole one launches
-    once through kernels.launch, with no flag word and no stream wait.
+    once through kernels.launch, with no flag word and no stream wait;
+  - the four probe8 wrappers on empty inputs: no rows (B = 0) give empty
+    tensors and launch nothing, rows of no tile (T = 0) launch once.
 The `cuda` tests at the end need a card and skip here:
 
     python -m pytest tests/test_torch_launch.py -q             # here
@@ -359,6 +361,33 @@ def test_rmw_loop8_launch_against_a_fake_library(fake, monkeypatch, n_wp):
     assert fake.tdc_probe8_d.calls == [(v.data_ptr(), 2, 3, n_wp, words.data_ptr(), carry.data_ptr(), 0xABC)]
     assert fake.tdc_mapped_word.calls == [] and fake.tdc_stream_wait.calls == []
     assert kernels.counts()["probe8_d"] == 1
+
+
+P8_WRAPPERS = {"tdc_probe8_a": "carry_revisit", "tdc_probe8_b": "carry_scans",
+               "tdc_probe8_c": "carry_into_vector", "tdc_probe8_d": "rmw_loop8"}
+
+
+@pytest.mark.parametrize("shape", [(0, 3), (2, 0)], ids=["B = 0", "T = 0"])
+@pytest.mark.parametrize("fn", sorted(P8_WRAPPERS))
+def test_probe8_empty_inputs_against_a_fake_library(fake, monkeypatch, fn, shape):
+    """A probe8 wrapper on a card tensor with no rows returns empty tensors
+    and launches nothing (no call, no count); with rows of no tile it
+    launches its kernel once, which zeroes the arena."""
+    from tudocomp_tpu_torch import probes
+
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype=None, device=None: _on_card(
+        real_empty(shape, dtype=dtype), device.index))
+    v = _on_card(torch.zeros((*shape, 8, 128), dtype=torch.int32), 0)
+    B = shape[0]
+    words, carry = getattr(probes, P8_WRAPPERS[fn])(v, 1664)
+    assert words.shape == (B, 1, 1664) and carry.shape == (B,)
+    name = kernels.KERNELS[fn][0]
+    if B == 0:
+        assert _calls(fake) == [] and kernels.counts()[name] == 0
+        return
+    assert getattr(fake, fn).calls == [(v.data_ptr(), B, 0, 1664, words.data_ptr(), carry.data_ptr(), 0xABC)]
+    assert kernels.counts()[name] == 1
 
 
 # ---- on the card ------------------------------------------------------------------------------

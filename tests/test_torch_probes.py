@@ -533,6 +533,40 @@ def test_probe8_steps_match_pallas(name, data):
     np.testing.assert_array_equal(carry.numpy(), want_carry)
 
 
+P8_PORT = {"k_a": (probes.carry_revisit, probes.carry_revisit_plain),
+           "k_b": (probes.carry_scans, probes.carry_scans_plain),
+           "k_c": (probes.carry_into_vector, probes.carry_into_vector_plain),
+           "k_d": (probes.rmw_loop8, probes.rmw_loop8_plain)}
+
+
+@pytest.mark.parametrize("shape", [(0, 3), (2, 0), (0, 0)], ids=["B = 0", "T = 0", "B = T = 0"])
+@pytest.mark.parametrize("name", ["k_a", "k_b", "k_c", "k_d"])
+def test_probe8_empty_inputs(name, shape):
+    """One answer on empty inputs for all four, wrapper and plain version:
+    rows of no tile (T = 0) give a zeroed arena and carry 0, no rows (B =
+    0) empty tensors. The Pallas body gives no answer there: its block of
+    one tile exceeds the empty operand, and interpret mode raises."""
+    (kernel,) = _functions("probe8.py", [name])
+    v = np.zeros((*shape, 8, 128), np.int32)
+    for fn in P8_PORT[name]:
+        words, carry = fn(_t(v))
+        assert words.shape == (shape[0], 1, probes.P8_NWP) and carry.shape == (shape[0],)
+        assert words.dtype == carry.dtype == torch.int32
+        assert not words.any() and not carry.any()
+    with pytest.raises(TypeError, match="slice_sizes"):
+        _probe8_pallas(kernel, v)
+
+
+@pytest.mark.parametrize("shape", [(0, 3), (2, 0)], ids=["B = 0", "T = 0"])
+def test_probe8_rmw_loop8_short_row_raises_on_empty_inputs(shape):
+    """k_d's window check comes first: a row of 383 words raises on empty
+    inputs too, in the wrapper and the plain version alike."""
+    v = _t(np.zeros((*shape, 8, 128), np.int32))
+    for fn in P8_PORT["k_d"]:
+        with pytest.raises(IndexError, match="window outside the row"):
+            fn(v, probes.WIN - 1)
+
+
 @pytest.mark.parametrize("n_wp", [383, 384, 1667])
 def test_probe8_rmw_loop8_needs_a_whole_window(n_wp):
     """Every window starts at word 0 ((v * 3) mod 8 >> 7 is 0), so the row

@@ -240,7 +240,9 @@ def p8_cases(device="cpu", seed: int = 8) -> dict:
     than k_c's warps (31) and more windows than k_d stages at once (2048),
     rows narrower than k_c's 128 lanes (k_d raises there), of exactly one
     window, of lengths whose rows start off a 16-byte bound (one of them
-    wider than k_c's zeroing CTA), and v itself off a 16-byte bound."""
+    wider than k_c's zeroing CTA), v itself off a 16-byte bound, and the
+    empty inputs: no row (B = 0: empty outputs, no launch) and rows of no
+    tile (T = 0: a zeroed arena, carry 0)."""
     rng = np.random.default_rng(seed)
 
     def rand(B, T, lo=0, hi=33):
@@ -265,6 +267,8 @@ def p8_cases(device="cpu", seed: int = 8) -> dict:
     off = torch.empty(v.numel() + 1, dtype=torch.int32, device=device)[1:]
     off.copy_(v)
     out["v off a bound"] = (off.view(2, 3, 8, 128), 1664)
+    out["B = 0"] = (torch.zeros((0, 3, 8, 128), dtype=torch.int32, device=device), 1664)
+    out["T = 0"] = (torch.zeros((2, 0, 8, 128), dtype=torch.int32, device=device), 1664)
     return out
 
 

@@ -25,9 +25,11 @@
 //   - The one-hot products on the matrix unit, which scattered counts and
 //     word parts, are atomicAdd / atomicXor into shared memory.
 //   - The TPU grid ran its tile axis in order and carried a scalar in SMEM
-//     from one step to the next; here probe8's CTA owns a block: k_a and k_b
-//     loop over its tiles with the carry in a register, k_c reads only the
-//     rows that carry its result, a warp a tile, and the pack of probe7
+//     from one step to the next; here probe8's row of tiles has one CTA for
+//     its carry, which reduces what the carry needs in u32 (k_a one warp
+//     over the tiles' first words, k_b the whole row, k_c only the rows
+//     that carry its result, a warp a tile), and CTAs beside it store the
+//     zeroed arena in 16-byte stores, each word once; the pack of probe7
 //     runs all tiles at once, a CTA summing the widths before its tile.
 //   - The dynamic-slice read-modify-write of a 384-word window becomes,
 //     for k_d, each word's XOR of the windows that cover it, stored once;
@@ -532,50 +534,6 @@ p7_pack_kernel(const uint32_t* __restrict__ vals, const int32_t* __restrict__ nb
 // scripts' first grid step zeroed them); carry [B] is the scalar the scripts
 // carried and never stored, given out so that it can be checked.
 
-// a: the carry alone: the sum of v[b, t, 0, 0] over the tiles
-__global__ void __launch_bounds__(TILE)
-p8_a_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
-  const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < n_wp; j += TILE) words[b * n_wp + j] = 0;
-  if (tid == 0) {
-    int carry = 0;
-    for (int t = 0; t < T; ++t) carry += v[(b * T + t) * TILE];
-    carry_out[b] = carry;
-  }
-}
-
-// b: + the scans: the carry takes every tile's total
-__global__ void __launch_bounds__(TILE)
-p8_b_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
-  __shared__ int s_warp[33];
-  const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < n_wp; j += TILE) words[b * n_wp + j] = 0;
-  int carry = 0;
-  for (int t = 0; t < T; ++t) {
-    int total;
-    tile_inclusive_scan(v[(b * T + t) * TILE + tid], s_warp, &total);
-    carry += total;
-  }
-  if (tid == 0) carry_out[b] = carry;
-}
-
-// c: words[0 .. k) = c0 + the lane scan of row 0 of the last tile, k = min(128, n_wp),
-// c0 the sum of row 7 over the tiles before the last; the other words 0; the carry row
-// 7's sum over every tile. The Pallas body walked the tiles in order, scanned all 8 rows
-// of each and rewrote words[0 .. 128) each step. Only row 7 of every tile and row 0 of
-// the last one carry the result, and each tile's row-7 sum stands alone, so CTA (b, 0)
-// reads T x 128 + 128 ints, not T x 1024: warp w < R (R = min(T, 31), blockDim 32 (R + 1))
-// reduces row 7 of tiles w, w + R, ... (4 ints a lane, __reduce_add_sync), and warp R
-// scans row 0 of the last tile (4 ints a lane, then the lanes' sums by shuffles). The
-// sums meet in shared memory across one barrier, and warp R stores words[0 .. k) and the
-// carry. CTAs (b, 1 ..) store the zeros, P8C_ZERO_WORDS each, in 16-byte stores: issued
-// by the scanning CTA, they delay its loads. Every word is stored once. Sums are u32,
-// JAX's wrapped int32 adds. Bound on the H100: a launch, one load and one barrier.
-constexpr int P8C_MAX_WARPS = 32;
-constexpr int P8C_ZERO_WORDS = 2048;  // zeros a CTA of grid row y > 0 stores
-
 // row[lo .. n) = 0, each word once, by threads tid of nthreads: 16-byte stores
 // between the 16-byte bounds, scalar words before the first and after the last.
 __device__ __forceinline__ void zero_words(uint32_t* row, int lo, int n, int tid, int nthreads) {
@@ -594,6 +552,87 @@ __device__ __forceinline__ uint4 load4(const int32_t* p, bool vec) {
   return make_uint4((uint32_t)p[0], (uint32_t)p[1], (uint32_t)p[2], (uint32_t)p[3]);
 }
 
+constexpr int P8_ZERO_WORDS = 2048;  // zeros a zeroing CTA of k_b and k_c stores
+
+// a: the arena zeroed, the carry the sum of v[b, t, 0, 0] over the tiles. The Pallas
+// body revisited the arena every grid step and added one scalar a tile. Here the grid is
+// (B, word groups) of P8A_THREADS-thread CTAs, each storing its P8A_ZERO_WORDS words of
+// the row in 16-byte stores (zero_words), each word once; warp 0 of CTA (b, 0) also takes
+// the carry: lane l loads the first word of tiles l, l + 32, ... (its first load issued
+// before the CTA's stores, so that they overlap), adds in u32 (JAX's wrapped int32 adds)
+// and __reduce_add_sync gives the sum, which lane 0 stores. No atomics, memset or flag.
+// Bound on the H100: a launch and one dependent load.
+constexpr int P8A_THREADS = 128;
+constexpr int P8A_ZERO_WORDS = 4 * P8A_THREADS;  // one 16-byte store a thread
+
+__global__ void __launch_bounds__(P8A_THREADS)
+p8_a_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const bool carry = blockIdx.y == 0 && tid < 32;
+  uint32_t sum = carry && tid < T ? (uint32_t)v[(b * T + tid) * TILE] : 0u;
+  const int lo = (int)blockIdx.y * P8A_ZERO_WORDS;
+  zero_words(words + b * n_wp, lo, min(n_wp, lo + P8A_ZERO_WORDS), tid, P8A_THREADS);
+  if (!carry) return;
+  for (int t = tid + 32; t < T; t += 32) sum += (uint32_t)v[(b * T + t) * TILE];
+  sum = __reduce_add_sync(FULL, sum);
+  if (tid == 0) carry_out[b] = (int32_t)sum;
+}
+
+// b: the arena zeroed, the carry the sum of every tile's total, that is of all of v[b].
+// The Pallas body scanned each tile's lanes and rows with rolls to reach its total, of
+// which it kept only the last. Here it is one reduction, not a scan, on k_c's grid
+// (B, 1 + zeroing CTAs): CTA (b, 0) reads v[b] once, 4 ints a thread a step (16-byte
+// loads through load4; scalar where v is off a 16-byte bound), each lane adds in u32,
+// each warp reduces with __reduce_add_sync, and the warps' sums meet in shared memory
+// across one barrier; thread 0 stores the carry. The launch sizes that CTA to v[b]'s
+// 16-byte groups (32 to 1024 threads), so at the probe's 3 tiles each thread issues one
+// load. CTAs (b, y > 0) store the zeros, P8_ZERO_WORDS each. A row stays on one CTA:
+// splitting it would need atomics or a second pass. No atomics, memset or flag. Bound on
+// the H100: a launch and one SM's read of v[b] (12 KiB at the probe's shape).
+constexpr int P8B_MAX_THREADS = 1024;
+
+__global__ void __launch_bounds__(P8B_MAX_THREADS)
+p8_b_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
+  __shared__ uint32_t s_warp[P8B_MAX_THREADS / 32];
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (blockIdx.y > 0) {
+    const int lo = (int)(blockIdx.y - 1) * P8_ZERO_WORDS;
+    zero_words(words + b * n_wp, lo, min(n_wp, lo + P8_ZERO_WORDS), tid, blockDim.x);
+    return;
+  }
+  const int32_t* vb = v + b * T * TILE;
+  const bool vec = ((uintptr_t)v & 15) == 0;  // every row of v then starts on a 16-byte bound
+  const int64_t n4 = (int64_t)T * (TILE / 4);
+  uint32_t sum = 0;
+#pragma unroll 4
+  for (int64_t i = tid; i < n4; i += blockDim.x) {
+    const uint4 r = load4(vb + 4 * i, vec);
+    sum += r.x + r.y + r.z + r.w;
+  }
+  sum = __reduce_add_sync(FULL, sum);
+  if (lane == 0) s_warp[warp] = sum;
+  __syncthreads();
+  if (warp > 0) return;
+  sum = __reduce_add_sync(FULL, lane < (int)(blockDim.x >> 5) ? s_warp[lane] : 0u);
+  if (lane == 0) carry_out[b] = (int32_t)sum;
+}
+
+// c: words[0 .. k) = c0 + the lane scan of row 0 of the last tile, k = min(128, n_wp),
+// c0 the sum of row 7 over the tiles before the last; the other words 0; the carry row
+// 7's sum over every tile. The Pallas body walked the tiles in order, scanned all 8 rows
+// of each and rewrote words[0 .. 128) each step. Only row 7 of every tile and row 0 of
+// the last one carry the result, and each tile's row-7 sum stands alone, so CTA (b, 0)
+// reads T x 128 + 128 ints, not T x 1024: warp w < R (R = min(T, 31), blockDim 32 (R + 1))
+// reduces row 7 of tiles w, w + R, ... (4 ints a lane, __reduce_add_sync), and warp R
+// scans row 0 of the last tile (4 ints a lane, then the lanes' sums by shuffles). The
+// sums meet in shared memory across one barrier, and warp R stores words[0 .. k) and the
+// carry. CTAs (b, 1 ..) store the zeros, P8_ZERO_WORDS each, in 16-byte stores: issued
+// by the scanning CTA, they delay its loads. Every word is stored once. Sums are u32,
+// JAX's wrapped int32 adds. Bound on the H100: a launch, one load and one barrier.
+constexpr int P8C_MAX_WARPS = 32;
+
 __global__ void __launch_bounds__(P8C_MAX_WARPS * 32)
 p8_c_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_out) {
   __shared__ uint32_t s_before[P8C_MAX_WARPS];  // warp w's row-7 sums of its tiles before the last
@@ -603,8 +642,8 @@ p8_c_kernel(const int32_t* v, int T, int n_wp, uint32_t* words, int32_t* carry_o
   uint32_t* row = words + b * n_wp;
   const int k = T > 0 ? min(LANES, n_wp) : 0;
   if (blockIdx.y > 0) {
-    const int lo = k + (int)(blockIdx.y - 1) * P8C_ZERO_WORDS;
-    zero_words(row, lo, min(n_wp, lo + P8C_ZERO_WORDS), tid, blockDim.x);
+    const int lo = k + (int)(blockIdx.y - 1) * P8_ZERO_WORDS;
+    zero_words(row, lo, min(n_wp, lo + P8_ZERO_WORDS), tid, blockDim.x);
     return;
   }
   if (T == 0) {  // no tile: the Pallas grid never ran
@@ -789,14 +828,25 @@ extern "C" int tdc_probe7_pack(const void* vals, const void* nbits, int B, long 
 }
 
 // v [B, T, 8, 128] int32; words [B, n_wp]; carry [B].
+// Each returns 0 with no launch when B <= 0 (the wrappers launch nothing there).
 extern "C" int tdc_probe8_a(const void* v, int B, int T, int n_wp, void* words, void* carry,
                             void* stream) {
-  p8_a_kernel<<<B, TILE, 0, STREAM>>>(I32(v), T, n_wp, U32W(words), I32W(carry));
+  if (B <= 0) return 0;
+  const long long gy = n_wp > 0 ? ((long long)n_wp + P8A_ZERO_WORDS - 1) / P8A_ZERO_WORDS : 1;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  p8_a_kernel<<<dim3((unsigned)B, (unsigned)gy), P8A_THREADS, 0, STREAM>>>(I32(v), T, n_wp, U32W(words),
+                                                                            I32W(carry));
   return last_error();
 }
 extern "C" int tdc_probe8_b(const void* v, int B, int T, int n_wp, void* words, void* carry,
                             void* stream) {
-  p8_b_kernel<<<B, TILE, 0, STREAM>>>(I32(v), T, n_wp, U32W(words), I32W(carry));
+  if (B <= 0) return 0;
+  const long long n4 = (long long)T * (TILE / 4);  // 16-byte groups of v[b]
+  const int threads = n4 >= P8B_MAX_THREADS ? P8B_MAX_THREADS : n4 > 32 ? (int)((n4 + 31) / 32 * 32) : 32;
+  const long long gy = 1 + ((long long)n_wp + P8_ZERO_WORDS - 1) / P8_ZERO_WORDS;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  p8_b_kernel<<<dim3((unsigned)B, (unsigned)gy), threads, 0, STREAM>>>(I32(v), T, n_wp, U32W(words),
+                                                                       I32W(carry));
   return last_error();
 }
 extern "C" int tdc_probe8_c(const void* v, int B, int T, int n_wp, void* words, void* carry,
@@ -804,7 +854,7 @@ extern "C" int tdc_probe8_c(const void* v, int B, int T, int n_wp, void* words, 
   if (B <= 0) return 0;
   const int R = T < P8C_MAX_WARPS - 1 ? T : P8C_MAX_WARPS - 1;  // warps reducing row 7
   const int k = T > 0 ? (n_wp < LANES ? n_wp : LANES) : 0;
-  const long long gy = 1 + ((long long)n_wp - k + P8C_ZERO_WORDS - 1) / P8C_ZERO_WORDS;
+  const long long gy = 1 + ((long long)n_wp - k + P8_ZERO_WORDS - 1) / P8_ZERO_WORDS;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   p8_c_kernel<<<dim3((unsigned)B, (unsigned)gy), 32 * (R + 1), 0, STREAM>>>(I32(v), T, n_wp, U32W(words),
                                                                             I32W(carry));

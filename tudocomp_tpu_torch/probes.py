@@ -377,6 +377,11 @@ def pack_levels(vals, nbits, n_wp: int, level: int, want_mid: bool = False):
 # ---- probe8: the pack kernel's infrastructure in four steps ---------------------------------
 
 
+# On empty inputs the four agree, kernels and plain versions: T = 0 gives a
+# zeroed arena and carry 0, as if the grid had run its first step alone;
+# B = 0 gives empty tensors, and the wrapper launches nothing.
+
+
 def _tiles_op(fn: str, plain, v: torch.Tensor, n_wp: int):
     if not on_cuda(v):
         return plain(v, n_wp)
@@ -386,12 +391,17 @@ def _tiles_op(fn: str, plain, v: torch.Tensor, n_wp: int):
     B, T = v.shape[:2]
     words = torch.empty((B, 1, n_wp), dtype=torch.int32, device=v.device)
     carry = torch.empty(B, dtype=torch.int32, device=v.device)
-    kernels.launch(fn, v, B, T, n_wp, words, carry)
+    if B > 0:
+        kernels.launch(fn, v, B, T, n_wp, words, carry)
     return words, carry
 
 
 def _zero_words(v, n_wp):
     return torch.zeros((v.shape[0], 1, n_wp), dtype=torch.int32, device=v.device)
+
+
+def _zero_carry(v):
+    return torch.zeros(v.shape[0], dtype=torch.int32, device=v.device)
 
 
 def carry_revisit_plain(v, n_wp: int = P8_NWP):
@@ -409,11 +419,14 @@ def carry_scans_plain(v, n_wp: int = P8_NWP):
 
 
 def carry_scans(v, n_wp: int = P8_NWP):
-    """k_b: a zeroed arena; the carry takes every tile's scanned total."""
+    """k_b: a zeroed arena; the carry takes every tile's scanned total,
+    which is the sum of all of v[b] (int32, wrapping)."""
     return _tiles_op("tdc_probe8_b", carry_scans_plain, v, n_wp)
 
 
 def carry_into_vector_plain(v, n_wp: int = P8_NWP):
+    if v.shape[1] == 0:
+        return _zero_words(v, n_wp), _zero_carry(v)
     x = torch.cumsum(v.to(torch.int64), dim=3)
     row7 = x[:, :, 7, LANES - 1]
     c0 = torch.cumsum(row7, dim=1) - row7
@@ -432,14 +445,14 @@ def carry_into_vector(v, n_wp: int = P8_NWP):
 def rmw_loop8_plain(v, n_wp: int = P8_NWP):
     words = _zero_words(v, n_wp)
     a = (torch.remainder(v[:, :, :, 0].to(torch.int64) * 3, 8) >> 7) * 128
-    if int(a.max()) + WIN > n_wp:
+    if (int(a.max()) if a.numel() else 0) + WIN > n_wp:
         raise IndexError("window outside the row")
     for b in range(v.shape[0]):
         for t in range(v.shape[1]):
             for g in range(ROWS):
                 lo = int(a[b, t, g])
                 words[b, 0, lo : lo + WIN] ^= g + 1
-    return words, torch.zeros(v.shape[0], dtype=torch.int32, device=v.device)
+    return words, _zero_carry(v)
 
 
 def rmw_loop8(v, n_wp: int = P8_NWP):
