@@ -93,6 +93,13 @@ line each:
                     no rows, rows of 100, 384, 1667 and 5001 words, v off
                     a 16-byte bound; k_d and its plain version raising
                     IndexError on the row of 100; no launch for no rows);
+                    k_rmw and k_shift also on tests/torch_cases.py's
+                    p6_cases (every window start up to the last that
+                    fits, rows of 384-5001 words not a multiple of 4, tiles
+                    off a 16-byte bound and transposed), k_rmw also
+                    launched into rows 1-3 words past a bound, and raising
+                    IndexError on P6_RMW_BAD (a row under 384 words before
+                    a launch) with the next call right;
                     the gather also on random
                     indices over whole rows and
                     on probes.gather_cases's edge shapes, with the arm each
@@ -267,8 +274,10 @@ whole run.
 it runs this script with --dh in a process of its own for PARENT, this
 checkout, this checkout and PARENT, in that order. --dh ROOT builds ROOT's
 kernels and times, first (late in a long process the profiler drops
-events), the four P8 kernels at the probe's shape (p8_timing, with their
-registers and spills: ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
+events), the seven P6 kernels on the probe's tile and row and one
+PyTorch elementwise call on the tile, the launch floor (p6_timing), the
+four P8 kernels at the probe's shape (p8_timing), the registers and
+spills of k_rmw, k_shift and the P8 kernels (ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
 round of phase 12's 16 MiB grammar (device ms by __global__ function under either
 design's names), then C on phase 2's histograms, G and the shared table's stage
 (shared_tables, which is C's int64 instance where the checkout has one) on
@@ -1107,9 +1116,10 @@ def host_plcp(text, sa):
 
 
 def dh_phase(dev, gpu, package: str) -> dict:
-    """Kernels A-J, P7 and P8 alone, from the package first on sys.path:
-    the P8 kernels at the probe's shape (p8_timing) with their registers
-    and spills (ptxas_report), then J on
+    """Kernels A-J, P6, P7 and P8 alone, from the package first on sys.path:
+    the P6 kernels and the launch floor (p6_timing), the P8 kernels at the
+    probe's shape (p8_timing), the registers and spills of k_rmw, k_shift
+    and the P8 kernels (ptxas_report), then J on
     phase 16's four 16 MiB inputs (j_timing) and I on each device round of
     phase 12's 16 MiB grammar (i_timing), first; C, G
     and the shared table's stage (table_timing); A and B at phase 2's
@@ -1131,8 +1141,10 @@ def dh_phase(dev, gpu, package: str) -> dict:
     from tudocomp_tpu_torch.ops import huffman_decode_cuda as hd
     from tudocomp_tpu_torch.ops import plcp_torch
 
-    p8 = p8_timing(probes, dev)  # first: late in a long process the profiler drops events
-    p8_ptxas = ptxas_report(kernels, "probes.cu", [DEVICE_FNS[f"probe8_{x}"][0] for x in "abcd"])
+    p6 = p6_timing(probes, dev)  # first: late in a long process the profiler drops events
+    p8 = p8_timing(probes, dev)
+    ptxas = ptxas_report(kernels, "probes.cu", [DEVICE_FNS[name][0] for name in (
+        "probe6_rmw", "probe6_shift", *(f"probe8_{x}" for x in "abcd"))])
     mtf, esp = j_timing(dev), i_timing(dev)
     torch.cuda.empty_cache()
     tables = table_timing(dev)
@@ -1183,7 +1195,8 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p7 = p7_timing(probes, *probes.probe7_inputs(dev))
     torch.cuda.empty_cache()
     no_jax()
-    return {"phase": "kernels A-J, P7 and P8", "package": package, "probe8": p8, "probe8_ptxas": p8_ptxas,
+    return {"phase": "kernels A-J, P6, P7 and P8", "package": package, "probe6": p6,
+            "launch_floor_device_ms": p6["launch_floor"]["device_ms"], "probe8": p8, "probes_ptxas": ptxas,
             "mtf_encode": mtf,
             "esp_adjust_windows": esp,
             "tables": tables, "encode": encode, **pack,
@@ -2077,12 +2090,50 @@ def p7_timing(probes, vals, nbits) -> dict:
     return out
 
 
+def wrapper_times(fn, name) -> dict:
+    """fn()'s wrapper ms (CUDA events; the median of five runs, each run
+    listed), the host microseconds a call takes to return (host_us: a
+    flagged launch waits for the card) and device ms (torch.profiler: the
+    __global__ of counter `name`; None: every kernel fn runs)."""
+    runs = [cuda_ms(fn, max_iters=200) for _ in range(5)]
+    return {"ms": sorted(runs)[2], "ms_runs": runs, "host_us": host_us(fn), **device_time(fn, name, iters=20)}
+
+
+def p6_timing(probes, dev) -> dict:
+    """The seven P6 kernels on the probe's arange tile (window_rmw: i = 300,
+    1152 words), each held to its plain version, then timed (wrapper_times);
+    and torch.bitwise_xor(x8, 7) on the tile timed the same way, the least
+    time the card takes for one tiny kernel ("launch_floor"; no yardstick of
+    any P6 function)."""
+    import torch
+
+    x8 = torch.arange(probes.TILE, dtype=torch.int32, device=dev).reshape(probes.ROWS, probes.LANES)
+    i300 = torch.tensor([[300]], dtype=torch.int32, device=dev)
+    out = {}
+    for name, kernel, plain in p6_functions(probes):
+        args = (i300,) if name == "probe6_rmw" else (x8,)
+        if max_abs_err(kernel(*args), plain(*args)):
+            raise AssertionError(f"{name} differs from its plain version")
+        out[name] = wrapper_times(lambda: kernel(*args), name)
+    out["launch_floor"] = {"call": "torch.bitwise_xor(x8, 7)", **wrapper_times(lambda: torch.bitwise_xor(x8, 7), None)}
+    return out
+
+
+def p6_functions(probes) -> tuple:
+    """(counter name, wrapper, plain version) of the seven P6 kernels."""
+    return (("probe6_roll_lane", probes.roll_lane, probes.roll_lane_plain),
+            ("probe6_roll_sublane", probes.roll_sublane, probes.roll_sublane_plain),
+            ("probe6_extract", probes.scalar_extract, probes.scalar_extract_plain),
+            ("probe6_bid", probes.broadcast_last_lane, probes.broadcast_last_lane_plain),
+            ("probe6_dot3", probes.onehot_count, probes.onehot_count_plain),
+            ("probe6_rmw", probes.window_rmw, probes.window_rmw_plain),
+            ("probe6_shift", probes.var_shift, probes.var_shift_plain))
+
+
 def p8_timing(probes, dev) -> dict:
     """The four P8 kernels on the probe's [2, 3, 8, 128] ones, arena of
-    P8_NWP words: each held to its plain version, then its wrapper ms (CUDA
-    events; the median of five runs, each run listed), the host
-    microseconds a call takes to return (host_us: a flagged launch waits
-    for the card) and device ms (torch.profiler, the kernel's __global__)."""
+    P8_NWP words: each held to its plain version, then timed
+    (wrapper_times)."""
     import torch
 
     v8 = torch.ones((probes.P8_B, probes.P8_T, probes.ROWS, probes.LANES), dtype=torch.int32, device=dev)
@@ -2090,9 +2141,7 @@ def p8_timing(probes, dev) -> dict:
     for name, kernel, plain in p8_functions(probes):
         if max_abs_err(kernel(v8), plain(v8)):
             raise AssertionError(f"{name} differs from its plain version")
-        runs = [cuda_ms(lambda: kernel(v8), max_iters=200) for _ in range(5)]
-        out[name] = {"ms": sorted(runs)[2], "ms_runs": runs, "host_us": host_us(lambda: kernel(v8)),
-                     **device_time(lambda: kernel(v8), name, iters=20)}
+        out[name] = wrapper_times(lambda: kernel(v8), name)
     return out
 
 
@@ -2207,6 +2256,7 @@ def probes_phase(dev, gpu):
     from tests import torch_cases
 
     p8 = torch_cases.p8_cases(dev)
+    p6 = torch_cases.p6_cases(dev)
 
     def p7(fn, level):
         return lambda v, nb: fn(v, nb, probes.P7_NWP, level, want_mid=True)
@@ -2220,8 +2270,12 @@ def probes_phase(dev, gpu):
         "probe6_extract": [((x8,), probes.scalar_extract, probes.scalar_extract_plain)],
         "probe6_bid": [((x8,), probes.broadcast_last_lane, probes.broadcast_last_lane_plain)],
         "probe6_dot3": [((x8,), probes.onehot_count, probes.onehot_count_plain)],
-        "probe6_rmw": [((i300,), probes.window_rmw, probes.window_rmw_plain)],
-        "probe6_shift": [((x8,), probes.var_shift, probes.var_shift_plain)],
+        "probe6_rmw": [((i300,), probes.window_rmw, probes.window_rmw_plain),
+                       *((args, probes.window_rmw, probes.window_rmw_plain)
+                         for fn, args in p6.values() if fn == "window_rmw")],
+        "probe6_shift": [((x8,), probes.var_shift, probes.var_shift_plain),
+                         *((args, probes.var_shift, probes.var_shift_plain)
+                           for fn, args in p6.values() if fn == "var_shift")],
         "probe7_pack": [((vals7, nbits7), p7(probes.pack_levels, lv), p7(probes.pack_levels_plain, lv))
                         for lv in (5, 4, 3, 2, 1)],
         **{name: [((v8,), kernel, plain), *(((v, n_wp), kernel, plain) for v, n_wp in p8.values()
@@ -2252,6 +2306,29 @@ def probes_phase(dev, gpu):
                 pass
     if not short or kernels.counts()["probe8_d"] != before:
         raise AssertionError("k_d's short row was not checked before the launch")
+    # k_rmw: a window outside the row sets the flag word and raises; a row under 384 words
+    # raises before a launch; both in the plain version too; the next call is right
+    for i, n_words in torch_cases.P6_RMW_BAD:
+        before = kernels.counts()["probe6_rmw"]
+        for fn in (probes.window_rmw, probes.window_rmw_plain):
+            try:
+                fn(torch.tensor([[i]], dtype=torch.int32, device=dev), n_words)
+                raise AssertionError(f"{fn.__name__} took i = {i} at {n_words} words")
+            except IndexError:
+                pass
+        if kernels.counts()["probe6_rmw"] - before != (n_words >= probes.WIN):
+            raise AssertionError(f"k_rmw launched wrongly on i = {i} at {n_words} words")
+    errs["probe6_rmw"] = max(errs["probe6_rmw"], max_abs_err(probes.window_rmw(i300), probes.window_rmw_plain(i300)))
+    # k_rmw straight into rows 1-3 words past a 16-byte bound: the scalar head
+    for n_words in (1152, 1155):
+        want = probes.window_rmw_plain(i300, n_words).reshape(-1)
+        for off in (1, 2, 3):
+            buf = torch.full((n_words + 8,), -1, dtype=torch.int32, device=dev)
+            if kernels.launch_flagged("tdc_probe6_rmw", i300.reshape(-1), buf[off: off + n_words], n_words):
+                raise AssertionError(f"k_rmw flagged i = 300 at {n_words} words, {off} past a bound")
+            e = max_abs_err(buf[off: off + n_words], want)
+            if e or (buf[:off] != -1).any() or (buf[off + n_words:] != -1).any():
+                raise AssertionError(f"k_rmw at {n_words} words, {off} past a bound: err {e} or a store outside")
     # no rows: every P8 wrapper returns empty tensors (held above) and launches nothing
     empty = [(v, n_wp) for v, n_wp in p8.values() if v.shape[0] == 0]
     before = {name: kernels.counts()[name] for name, _, _ in p8_functions(probes)}

@@ -377,12 +377,37 @@ def test_probe6_kernels(dev, tile):
     for kernel, plain, name in pairs:
         _equal((kernel(x),), (plain(x),))
         assert kernels.counts()[name] == 1, name
-    for i in (0, 300, 767):
-        t = torch.tensor([[i]], dtype=torch.int32, device=dev)
-        _equal((probes.window_rmw(t),), (probes.window_rmw_plain(t),))
-    assert kernels.counts()["probe6_rmw"] == 3
-    with pytest.raises(IndexError):
-        probes.window_rmw(torch.tensor([[1152]], dtype=torch.int32, device=dev))
+    cases = tc.p6_cases(dev)
+    for name, args in cases.values():
+        _equal((getattr(probes, name)(*args),), (getattr(probes, name + "_plain")(*args),))
+    assert kernels.counts()["probe6_rmw"] == sum(n == "window_rmw" for n, _ in cases.values())
+    assert kernels.counts()["probe6_shift"] == 1 + sum(n == "var_shift" for n, _ in cases.values())
+    for i, n_words in tc.P6_RMW_BAD:  # a bad window sets the flag word; a short row raises before a launch
+        with pytest.raises(IndexError, match="window outside the row"):
+            probes.window_rmw(torch.tensor([[i]], dtype=torch.int32, device=dev), n_words)
+    assert kernels.counts()["probe6_rmw"] == sum(n == "window_rmw" for n, _ in cases.values()) + sum(
+        n >= probes.WIN for _, n in tc.P6_RMW_BAD)
+    t = torch.tensor([[300]], dtype=torch.int32, device=dev)
+    _equal((probes.window_rmw(t),), (probes.window_rmw_plain(t),))  # right again after the flag
+
+
+@pytest.mark.parametrize("n_words", [384, 1152, 1155, 5001])
+def test_probe6_rmw_kernel_rows_off_a_bound(dev, n_words):
+    """p6_rmw_kernel launched straight into rows 0-3 words past a 16-byte
+    bound (the wrapper's rows start on one): the scalar head and tail."""
+    from tudocomp_tpu_torch import probes
+
+    for i in (0, 127, 300, 895, 4600):
+        t = torch.tensor([i], dtype=torch.int32, device=dev)
+        if (i >> 7) * 128 + probes.WIN > n_words:
+            continue
+        want = probes.window_rmw_plain(t, n_words).reshape(-1)
+        for off in range(4):
+            buf = torch.full((n_words + 8,), -1, dtype=torch.int32, device=dev)
+            row = buf[off : off + n_words]
+            assert not kernels.launch_flagged("tdc_probe6_rmw", t, row, n_words)
+            assert torch.equal(row.cpu(), want.cpu()), (i, off)
+            assert (buf[:off] == -1).all() and (buf[off + n_words :] == -1).all(), (i, off)
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "misaligned", "transposed"])

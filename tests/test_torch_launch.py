@@ -20,6 +20,10 @@ Two kinds of checks, each case its own test:
   - probes.rmw_loop8 against the fake: a row shorter than its 384-word
     window raises IndexError before any launch, a whole one launches
     once through kernels.launch, with no flag word and no stream wait;
+  - probes.window_rmw and probes.var_shift against the fake: an empty i
+    or a row of 383 words raises IndexError before any launch, a good i
+    launches once through kernels.launch_flagged; a tile launches once
+    through kernels.launch;
   - the four probe8 wrappers on empty inputs: no rows (B = 0) give empty
     tensors and launch nothing, rows of no tile (T = 0) launch once.
 The `cuda` tests at the end need a card and skip here:
@@ -361,6 +365,47 @@ def test_rmw_loop8_launch_against_a_fake_library(fake, monkeypatch, n_wp):
     assert fake.tdc_probe8_d.calls == [(v.data_ptr(), 2, 3, n_wp, words.data_ptr(), carry.data_ptr(), 0xABC)]
     assert fake.tdc_mapped_word.calls == [] and fake.tdc_stream_wait.calls == []
     assert kernels.counts()["probe8_d"] == 1
+
+
+@pytest.mark.parametrize("case", ["empty i", "n_words 383", "i 300"])
+def test_window_rmw_launch_against_a_fake_library(fake, monkeypatch, case):
+    """probes.window_rmw on a card tensor: an empty i, or a row of 383
+    words that no window fits, raises IndexError before any launch (no
+    call, no count); a good i launches tdc_probe6_rmw once through
+    kernels.launch_flagged (the card's flag word, one stream wait)."""
+    from tudocomp_tpu_torch import probes
+
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda shape, dtype=None, device=None: _on_card(
+        real_empty(shape, dtype=dtype), device.index))
+    i = _card1(torch.zeros(0, dtype=torch.int32) if case == "empty i" else torch.tensor([[300]], dtype=torch.int32))
+    n_words = 383 if case == "n_words 383" else 1152
+    if case != "i 300":
+        with pytest.raises(IndexError):
+            probes.window_rmw(i, n_words)
+        assert _calls(fake) == [] and kernels.counts()["probe6_rmw"] == 0
+        return
+    out = probes.window_rmw(i, n_words)
+    assert out.shape == (1, 1, 1152) and out.get_device() == 1
+    assert fake.tdc_probe6_rmw.calls == [(i.data_ptr(), out.data_ptr(), 1152, 0xD001, STREAMS[1])]
+    assert [c[0] for c in fake.tdc_mapped_word.calls] == [1]
+    assert fake.tdc_stream_wait.calls == [(STREAMS[1],)]
+    assert kernels.counts()["probe6_rmw"] == 1
+
+
+def test_var_shift_launch_against_a_fake_library(fake, monkeypatch):
+    """probes.var_shift on a card tile launches tdc_probe6_shift once
+    through kernels.launch: no flag word, no stream wait."""
+    from tudocomp_tpu_torch import probes
+
+    real_empty_like = torch.empty_like
+    monkeypatch.setattr(torch, "empty_like", lambda x: _on_card(real_empty_like(x), x.get_device()))
+    x = _card1(torch.arange(1024, dtype=torch.int32).reshape(8, 128))
+    out = probes.var_shift(x)
+    assert out.shape == (8, 128) and out.get_device() == 1
+    assert fake.tdc_probe6_shift.calls == [(x.data_ptr(), out.data_ptr(), STREAMS[1])]
+    assert fake.tdc_mapped_word.calls == [] and fake.tdc_stream_wait.calls == []
+    assert kernels.counts()["probe6_shift"] == 1
 
 
 P8_WRAPPERS = {"tdc_probe8_a": "carry_revisit", "tdc_probe8_b": "carry_scans",

@@ -211,20 +211,102 @@ def test_probe6_tile_primitives(name, tile):
     np.testing.assert_array_equal(port(_t(x)).numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("i", [0, 127, 300, 767])
-def test_probe6_window_rmw(i):
+def _k_rmw(i):
+    """The Pallas body of k_rmw in interpret mode on i ([1, 1] int32): u32 [1, 1, 1152]."""
     (k_rmw,) = _functions("probe6.py", ["k_rmw"])
-    want = pl.pallas_call(
+    return np.asarray(pl.pallas_call(
         k_rmw,
         out_shape=jax.ShapeDtypeStruct((1, 1, 1152), jnp.uint32),
         in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
         out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
         interpret=True,
-    )(jnp.array([[i]], jnp.int32))
+    )(jnp.asarray(i, jnp.int32)))
+
+
+@pytest.mark.parametrize("i", [0, 127, 300, 767, 895])
+def test_probe6_window_rmw(i):
+    """895 opens the last window that fits 1152 words (a = 768)."""
     got = probes.window_rmw(torch.tensor([[i]], dtype=torch.int32))
-    np.testing.assert_array_equal(_u32(got.numpy()), np.asarray(want))
+    np.testing.assert_array_equal(_u32(got.numpy()), _k_rmw([[i]]))
     with pytest.raises(IndexError):
         probes.window_rmw(torch.tensor([[1152]], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("i, n_words", tc.P6_RMW_BAD)
+def test_probe6_window_rmw_outside_the_row_raises(i, n_words):
+    """A window before the row, past its end or at int32's ends, and a row
+    of 383 words, raise IndexError in the wrapper and the plain version."""
+    t = torch.tensor([[i]], dtype=torch.int32)
+    for fn in (probes.window_rmw, probes.window_rmw_plain):
+        with pytest.raises(IndexError, match="window outside the row"):
+            fn(t, n_words)
+
+
+@pytest.mark.parametrize("n_words", [384, 385, 1155])
+@pytest.mark.parametrize("i", [0, 1, 127])
+def test_probe6_window_rmw_plain_first_window(i, n_words):
+    """i in [0, 127] opens the window at word 0: 384 sevens, zeros past them."""
+    want = np.zeros((1, 1, n_words), np.int32)
+    want[..., : probes.WIN] = 7
+    t = torch.tensor([[i]], dtype=torch.int32)
+    for fn in (probes.window_rmw, probes.window_rmw_plain):
+        np.testing.assert_array_equal(fn(t, n_words).numpy(), want)
+
+
+@pytest.mark.parametrize("case", list(tc.p6_cases()))
+def test_probe6_cases_match_the_bodies(case):
+    """The card's cases (tc.p6_cases) on the CPU: var_shift against k_shift
+    in interpret mode; window_rmw against k_rmw at its 1152 words, and at
+    other lengths against the window written out in numpy."""
+    name, args = tc.p6_cases()[case]
+    got = getattr(probes, name)(*args)
+    if name == "var_shift":
+        (k_shift,) = _functions("probe6.py", ["k_shift"])
+        want = pl.pallas_call(k_shift, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
+                              interpret=True)(jnp.asarray(args[0].contiguous().numpy()))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    i, n_words = args
+    first = int(i.reshape(-1)[0])
+    if n_words == probes.P6_RMW_WORDS:
+        want = _k_rmw([[first]])
+    else:
+        want = np.zeros((1, 1, n_words), np.uint32)
+        a = (first >> 7) * 128
+        want[..., a : a + probes.WIN] = 7
+    np.testing.assert_array_equal(_u32(got.numpy()), want)
+
+
+_TILE_OPS = ["roll_lane", "roll_sublane", "scalar_extract", "broadcast_last_lane", "onehot_count", "var_shift"]
+_BAD_TILES = {
+    "int64 [4]": torch.arange(4, dtype=torch.int64),
+    "int64 tile": torch.arange(1024, dtype=torch.int64).reshape(8, 128),
+    "float32 tile": torch.zeros((8, 128), dtype=torch.float32),
+    "int32 [16, 128]": torch.zeros((16, 128), dtype=torch.int32),
+    "int32 [128, 8]": torch.zeros((128, 8), dtype=torch.int32),
+    "int32 [1024]": torch.arange(1024, dtype=torch.int32),
+}
+P6_BAD_INPUTS = {
+    **{f"{fn}, {bad}": (fn, (x,), ValueError) for fn in _TILE_OPS for bad, x in _BAD_TILES.items()},
+    "window_rmw, float i": ("window_rmw", (torch.tensor([[300.7]]),), TypeError),
+    "window_rmw, int64 i": ("window_rmw", (torch.tensor([[300]]),), TypeError),
+    "window_rmw, empty i": ("window_rmw", (torch.zeros((0,), dtype=torch.int32),), IndexError),
+    "window_rmw, empty [1, 0] i": ("window_rmw", (torch.zeros((1, 0), dtype=torch.int32),), IndexError),
+    "window_rmw, n_words 383": ("window_rmw", (torch.tensor([[0]], dtype=torch.int32), 383), IndexError),
+    "window_rmw, n_words 0": ("window_rmw", (torch.tensor([[0]], dtype=torch.int32), 0), IndexError),
+}
+
+
+@pytest.mark.parametrize("case", list(P6_BAD_INPUTS))
+def test_probe6_wrappers_check_before_the_route(case):
+    """On the CPU each of the seven probe6 wrappers raises on the inputs
+    that its card route refuses, with the same exception: a tile that is
+    not int32 [8, 128] ValueError; window_rmw a non-int32 i TypeError, an
+    empty i or a row under 384 words IndexError (tests/test_torch_launch.py
+    holds the card route to the same, with no launch)."""
+    name, args, exc = P6_BAD_INPUTS[case]
+    with pytest.raises(exc):
+        getattr(probes, name)(*args)
 
 
 # ---- probe7 ----------------------------------------------------------------------------------

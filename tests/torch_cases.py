@@ -227,6 +227,54 @@ def p7_tokens(nt: int, widths: str, seed: int = 0):
     return vals, nbits
 
 
+# ---- probe6's tile and window ---------------------------------------------------------------
+
+# (i, n_words) that window_rmw and its plain version reject with IndexError: a window
+# before the row, past its end (896 is the first i whose window ends past word 1152),
+# int32's ends (at 2^31 - 1, a = 2^31 - 128 and a + 384 passes 2^31) and a row that no
+# window fits
+P6_RMW_BAD = [(-1, 1152), (896, 1152), (1152, 1152), ((1 << 31) - 1, 1152), (-(1 << 31), 1152), (0, 383)]
+
+# int32's ends, -1, 0, and values around multiples of 31 (s = x mod 31 at 0 and 30), near the ends too
+P6_EXTREMES = np.array([-(1 << 31), (1 << 31) - 1, -1, 0, 1, 30, 31, 32, -30, -31, -32, 62, 2147483646,
+                        2147483645, -2147483646, -2147483647], np.int64).astype(np.int32)
+
+
+def p6_cases(device="cpu", seed: int = 6) -> dict:
+    """name -> (probes wrapper name, args) for the redesigned probe6
+    kernels, each to be held to its plain version (the wrapper's name +
+    "_plain"): window_rmw at every window start the tests hold to the
+    Pallas body, the last window that fits, rows whose length is not a
+    multiple of 4 (the tail stored by scalars), a row past one CTA, i with
+    more than one element and not contiguous (its first element counts);
+    var_shift on the probe's arange, signed and extreme values, and on
+    tiles one word off a 16-byte bound and transposed (the wrapper copies
+    both into an aligned tile)."""
+    rng = np.random.default_rng(seed)
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    cases = {f"window_rmw i {i}": ("window_rmw", (i32([[i]]), 1152)) for i in (0, 127, 300, 767, 895)}
+    for i, n in ((0, 384), (127, 385), (300, 1155), (895, 1153), (1000, 1386), (4600, 5001)):
+        cases[f"window_rmw i {i}, n_words {n}"] = ("window_rmw", (i32([[i]]), n))
+    cases["window_rmw i [3], first 700"] = ("window_rmw", (i32([700, 5, 1 << 20]), 1152))
+    cases["window_rmw i a column, not contiguous"] = ("window_rmw", (i32([[640, 5]]).t(), 1152))
+
+    def tile(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    signed = rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32)
+    cases["var_shift arange"] = ("var_shift", (tile(np.arange(1024).reshape(8, 128)),))
+    cases["var_shift signed"] = ("var_shift", (tile(signed),))
+    cases["var_shift extremes"] = ("var_shift", (tile(rng.choice(P6_EXTREMES, (8, 128))),))
+    off = torch.empty(8 * 128 + 1, dtype=torch.int32, device=device)[1:]
+    off.copy_(tile(signed).reshape(-1))
+    cases["var_shift one word off a bound"] = ("var_shift", (off.view(8, 128),))
+    cases["var_shift transposed"] = ("var_shift", (tile(signed).t().contiguous().t(),))
+    return cases
+
+
 # ---- probe8's tile steps ---------------------------------------------------------------------
 
 # int32's ends, -1, 0 and the values around +-2^31 / 3, where v * 3 wraps

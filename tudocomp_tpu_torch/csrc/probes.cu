@@ -31,9 +31,12 @@
 //     that carry its result, a warp a tile), and CTAs beside it store the
 //     zeroed arena in 16-byte stores, each word once; the pack of probe7
 //     runs all tiles at once, a CTA summing the widths before its tile.
-//   - The dynamic-slice read-modify-write of a 384-word window becomes,
-//     for k_d, each word's XOR of the windows that cover it, stored once;
-//     for k_rmw, XORs at the one computed offset.
+//   - The dynamic-slice read-modify-write of a 384-word window becomes
+//     each word's value computed from the windows that cover it and stored
+//     once, in 16-byte stores, with no zeroing pass: for k_d the XOR of
+//     every window over the word, for k_rmw 7 inside the one window and 0
+//     outside it.
+//   - k_shift is an elementwise pass in the rolls' shape.
 // A kernel that finds a bad input (the gather, rmw, the pack at level 1-5)
 // stores 1 into `err`, a word of pinned host memory mapped for the card
 // (csrc/launch.cu): a plain store, never an atomic, which the host reads
@@ -318,26 +321,63 @@ __global__ void __launch_bounds__(TILE) p6_dot3_kernel(const int32_t* x, int32_t
   o[tid] = hist[r][c];
 }
 
-// o[0 .. n) = 0, then o[a .. a + 384) ^= 7 with a = (i >> 7) * 128
-__global__ void __launch_bounds__(TILE) p6_rmw_kernel(const int32_t* i, uint32_t* o, int n,
-                                                      int32_t* err) {
-  const int tid = threadIdx.x;
-  for (int j = tid; j < n; j += TILE) o[j] = 0;
-  __syncthreads();
-  const int a = (i[0] >> 7) * 128;
-  if (a < 0 || a + WIN > n) {
-    if (tid == 0) *reinterpret_cast<volatile int32_t*>(err) = 1;
+// k_rmw (etc/probe6.py:92): a zeroed row of n words with words [a, a + 384) XORed with 7,
+// a = (i >> 7) * 128. The Pallas body zeroed the row in VMEM, then read and rewrote the window
+// at an offset it took from SMEM. Here nothing is read back: word j is 7 where
+// (unsigned)(j - a) < 384 and 0 elsewhere, computed once and stored once. Each thread owns 4
+// consecutive words (one 16-byte group; a scalar head and tail where the row is off a 16-byte
+// bound or n is not a multiple of 4), as p8_d_kernel's threads do, on a grid of P6R_THREADS-
+// thread CTAs sized from n by the launcher (3 CTAs at n = 1152), so that the stores spread
+// over a few SMs, one 16-byte store a thread. The load of i comes first: lane 0 of each warp
+// loads it before anything else and a shuffle broadcasts it, one load a warp. a is taken by
+// an arithmetic shift of the signed int32, so a negative i gives a negative a and a bad
+// window; (i >> 7) * 128 fits int32 for every i (2^31 - 128 at most), a + 384 need not, so the
+// window is checked as a <= n - 384. A bad window stores nothing but the mapped flag word (one
+// plain store; the wrapper raises IndexError). No zeroing pass, barrier, shared memory or
+// atomics. Bound on the H100: a launch and one dependent load; by bytes 4 B in and 4n B out
+// (0.0000014 ms at n = 1152).
+constexpr int P6R_THREADS = 128;
+
+__global__ void __launch_bounds__(P6R_THREADS)
+p6_rmw_kernel(const int32_t* __restrict__ i, uint32_t* __restrict__ o, int n, int32_t* err) {
+  const int lane = threadIdx.x & 31;
+  int iv = 0;
+  if (lane == 0) iv = __ldg(i);
+  // group q holds the words j0 = 4q - off .. j0 + 3, 16-byte aligned
+  const int off = (int)(((uintptr_t)o >> 2) & 3);
+  const int j0 = 4 * (int)(blockIdx.x * P6R_THREADS + threadIdx.x) - off;
+  const int a = (__shfl_sync(FULL, iv, 0) >> 7) * LANES;
+  if (a < 0 || a > n - WIN) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *reinterpret_cast<volatile int32_t*>(err) = 1;
     return;
   }
-  for (int j = tid; j < WIN; j += TILE) o[a + j] ^= 7u;
+  uint32_t x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[k] = (uint32_t)(j0 + k - a) < (uint32_t)WIN ? 7u : 0u;
+  if (j0 >= 0 && j0 + 4 <= n) {
+    *reinterpret_cast<uint4*>(o + j0) = make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (j0 + k >= 0 && j0 + k < n) o[j0 + k] = x[k];
+  }
 }
 
-// rotate left by x mod 31, as ((v << s) | (v >> (31 - s)))
-__global__ void __launch_bounds__(TILE) p6_shift_kernel(const int32_t* x, int32_t* o) {
-  const int tid = threadIdx.x;
-  const uint32_t v = (uint32_t)x[tid];
-  const uint32_t s = (uint32_t)floor_mod(x[tid], 31);
-  o[tid] = (int32_t)((v << s) | (v >> (31u - s)));
+// k_shift (etc/probe6.py:111): (v << s) | (v >> (31 - s)) on the u32 pattern v of each
+// element, s = x mod 31 as a floor mod (in [0, 30], as jnp's % on a negative int32). It is not
+// a rotation: a rotate (__funnelshift_l) shifts right by 32 - s, this by 31 - s, and at s = 0
+// it ORs in v >> 31. The rolls' shape: one warp a row (8 warps), lane l loads the row's
+// 16-byte vector l, computes its four elements in registers and stores one 16-byte vector.
+// No shared memory, no barrier. Bound on the H100: a launch; by bytes 8 KiB (0.0000024 ms).
+__device__ __forceinline__ int32_t shift31(int32_t x) {
+  const uint32_t v = (uint32_t)x, s = (uint32_t)floor_mod(x, 31);
+  return (int32_t)((v << s) | (v >> (31u - s)));
+}
+
+__global__ void __launch_bounds__(ROWS * 32) p6_shift_kernel(const int4* __restrict__ x,
+                                                             int4* __restrict__ o) {
+  const int4 v = x[threadIdx.x];
+  o[threadIdx.x] = make_int4(shift31(v.x), shift31(v.y), shift31(v.z), shift31(v.w));
 }
 
 // ---- etc/probe7.py: the pack kernel, built up in five levels -----------------
@@ -798,13 +838,19 @@ extern "C" int tdc_probe6_dot3(const void* x, void* o, void* stream) {
   p6_dot3_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
   return last_error();
 }
-// i [1] int32 on the device, o [n] u32, err the mapped flag word.
+// i [1] int32 on the device, o [n] u32 (4-byte aligned), err the mapped flag word. A CTA
+// of P6R_THREADS threads a P6R_THREADS x 4 words; no launch for n <= 0.
 extern "C" int tdc_probe6_rmw(const void* i, void* o, int n, void* err, void* stream) {
-  p6_rmw_kernel<<<1, TILE, 0, STREAM>>>(I32(i), U32W(o), n, I32W(err));
+  if (n <= 0) return 0;
+  const long long off = ((uintptr_t)o >> 2) & 3;  // words before the row's first 16-byte bound
+  const long long groups = (off + n + 3) / 4;
+  p6_rmw_kernel<<<(unsigned)((groups + P6R_THREADS - 1) / P6R_THREADS), P6R_THREADS, 0, STREAM>>>(
+      I32(i), U32W(o), n, I32W(err));
   return last_error();
 }
 extern "C" int tdc_probe6_shift(const void* x, void* o, void* stream) {
-  p6_shift_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
+  if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
+  p6_shift_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x), static_cast<int4*>(o));
   return last_error();
 }
 

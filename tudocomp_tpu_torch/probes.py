@@ -14,7 +14,8 @@ and its time on the card.
 Each wrapper picks its route by the device of its input: CUDA tensors go to
 the kernel, CPU tensors to the plain PyTorch version beside it (`*_plain`),
 which the tests hold to the Pallas bodies and which nothing on the card's
-path calls. A kernel that can find a bad input reports it in the launch
+path calls. The probe6 wrappers check their input before the route, so that
+both routes raise on the same bad input. A kernel that can find a bad input reports it in the launch
 path's mapped flag word (`kernels.launch_flagged`), and the wrapper raises.
 Words are u32 bit patterns in int32 tensors, as everywhere in the port.
 The scripts' XLA-only parts (`hillis_cumsum`, `hillis_xor`, `hist2`) are
@@ -181,12 +182,10 @@ def gather(S: torch.Tensor, idx: torch.Tensor, arms: torch.Tensor | None = None)
 
 
 def _tile_op(fn: str, plain, x: torch.Tensor) -> torch.Tensor:
-    if not x.is_cuda:
-        if x.is_cpu:
-            return plain(x)
-        raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.int32 or x.shape != (ROWS, LANES):
         raise ValueError(f"expected an int32 [{ROWS}, {LANES}] tile, not {x.dtype} {tuple(x.shape)}")
+    if not on_cuda(x):
+        return plain(x)
     if x.data_ptr() & 15 or not x.is_contiguous():  # the kernels read 16-byte vectors
         x = x.clone(memory_format=torch.contiguous_format)
     out = torch.empty_like(x)
@@ -265,10 +264,18 @@ def window_rmw_plain(i: torch.Tensor, n_words: int = P6_RMW_WORDS) -> torch.Tens
 
 def window_rmw(i: torch.Tensor, n_words: int = P6_RMW_WORDS) -> torch.Tensor:
     """A zeroed [1, 1, n_words] row with words [a, a + 384) XORed with 7,
-    a = (i >> 7) * 128 read from the one-element int32 tensor i."""
+    a = (i >> 7) * 128 read from the first element of the int32 tensor i.
+    A window outside the row raises IndexError; an empty i and a row of
+    fewer than 384 words, which no window fits, raise it before a launch."""
+    if i.dtype != torch.int32:
+        raise TypeError(f"expected an int32 tensor, not {i.dtype}")
+    if i.numel() == 0:
+        raise IndexError("i is empty: no window start")
+    if n_words < WIN:
+        raise IndexError("window outside the row")
     if not on_cuda(i):
         return window_rmw_plain(i, n_words)
-    i = _i32(i).reshape(-1)[:1]
+    i = i.reshape(-1)[:1].contiguous()
     out = torch.empty((1, 1, n_words), dtype=torch.int32, device=i.device)
     if kernels.launch_flagged("tdc_probe6_rmw", i, out, n_words):
         raise IndexError("window outside the row")
