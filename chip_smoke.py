@@ -99,7 +99,11 @@ line each:
                     off a 16-byte bound and transposed), k_rmw also
                     launched into rows 1-3 words past a bound, and raising
                     IndexError on P6_RMW_BAD (a row under 384 words before
-                    a launch) with the next call right;
+                    a launch) with the next call right; k_bid and k_dot3
+                    also on p6_cases (the arange, signed, extreme, one
+                    value, mods at or above 128, negatives -384 .. -257,
+                    four equal a lane; each also off a bound and
+                    transposed), every P6 case launching its kernel once;
                     the gather also on random
                     indices over whole rows and
                     on probes.gather_cases's edge shapes, with the arm each
@@ -277,7 +281,7 @@ kernels and times, first (late in a long process the profiler drops
 events), the seven P6 kernels on the probe's tile and row and one
 PyTorch elementwise call on the tile, the launch floor (p6_timing), the
 four P8 kernels at the probe's shape (p8_timing), the registers and
-spills of k_rmw, k_shift and the P8 kernels (ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
+spills of k_bid, k_dot3, k_rmw, k_shift and the P8 kernels (ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
 round of phase 12's 16 MiB grammar (device ms by __global__ function under either
 design's names), then C on phase 2's histograms, G and the shared table's stage
 (shared_tables, which is C's int64 instance where the checkout has one) on
@@ -722,6 +726,10 @@ def kernel_bytes(name: str, args, out) -> int:
         if name == "probe8_c":  # row 7 of every tile and row 0 of the last
             return 4 * B * (T + 1 if T else 0) * lanes + nbytes(out)
         return 4 * B * T * rows + nbytes(out)  # lane 0 of every row of every tile
+    if name == "probe6_bid":  # the last lane of each row, the tile written
+        return 4 * args[0].shape[0] + nbytes(out)
+    if name == "probe6_extract":  # the one word x[7, 0], the tile written
+        return 4 + nbytes(out)
     return nbytes(args) + nbytes(out)
 
 
@@ -1118,7 +1126,7 @@ def host_plcp(text, sa):
 def dh_phase(dev, gpu, package: str) -> dict:
     """Kernels A-J, P6, P7 and P8 alone, from the package first on sys.path:
     the P6 kernels and the launch floor (p6_timing), the P8 kernels at the
-    probe's shape (p8_timing), the registers and spills of k_rmw, k_shift
+    probe's shape (p8_timing), the registers and spills of k_bid, k_dot3, k_rmw, k_shift
     and the P8 kernels (ptxas_report), then J on
     phase 16's four 16 MiB inputs (j_timing) and I on each device round of
     phase 12's 16 MiB grammar (i_timing), first; C, G
@@ -1144,7 +1152,7 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p6 = p6_timing(probes, dev)  # first: late in a long process the profiler drops events
     p8 = p8_timing(probes, dev)
     ptxas = ptxas_report(kernels, "probes.cu", [DEVICE_FNS[name][0] for name in (
-        "probe6_rmw", "probe6_shift", *(f"probe8_{x}" for x in "abcd"))])
+        "probe6_bid", "probe6_dot3", "probe6_rmw", "probe6_shift", *(f"probe8_{x}" for x in "abcd"))])
     mtf, esp = j_timing(dev), i_timing(dev)
     torch.cuda.empty_cache()
     tables = table_timing(dev)
@@ -2102,9 +2110,12 @@ def wrapper_times(fn, name) -> dict:
 def p6_timing(probes, dev) -> dict:
     """The seven P6 kernels on the probe's arange tile (window_rmw: i = 300,
     1152 words), each held to its plain version, then timed (wrapper_times);
-    and torch.bitwise_xor(x8, 7) on the tile timed the same way, the least
-    time the card takes for one tiny kernel ("launch_floor"; no yardstick of
-    any P6 function)."""
+    k_dot3 also on a tile of one value (probe6_dot3_one_value: every row's
+    128 lanes in one bin, the worst case of its shared atomics; a device
+    time above the arange tile's by more than 0.0001 ms in both turns is
+    contention, PERF.md §6); and torch.bitwise_xor(x8, 7) on the tile timed
+    the same way, the least time the card takes for one tiny kernel
+    ("launch_floor"; no yardstick of any P6 function)."""
     import torch
 
     x8 = torch.arange(probes.TILE, dtype=torch.int32, device=dev).reshape(probes.ROWS, probes.LANES)
@@ -2115,6 +2126,11 @@ def p6_timing(probes, dev) -> dict:
         if max_abs_err(kernel(*args), plain(*args)):
             raise AssertionError(f"{name} differs from its plain version")
         out[name] = wrapper_times(lambda: kernel(*args), name)
+    # k_dot3 on one value over the tile: 128 lanes of each row in one bin
+    x5 = torch.full_like(x8, 5)
+    if max_abs_err(probes.onehot_count(x5), probes.onehot_count_plain(x5)):
+        raise AssertionError("probe6_dot3 differs from its plain version on one value")
+    out["probe6_dot3_one_value"] = wrapper_times(lambda: probes.onehot_count(x5), "probe6_dot3")
     out["launch_floor"] = {"call": "torch.bitwise_xor(x8, 7)", **wrapper_times(lambda: torch.bitwise_xor(x8, 7), None)}
     return out
 
@@ -2268,8 +2284,12 @@ def probes_phase(dev, gpu):
         "probe6_roll_lane": [((x,), probes.roll_lane, probes.roll_lane_plain) for x in (x8, xs)],
         "probe6_roll_sublane": [((x8,), probes.roll_sublane, probes.roll_sublane_plain)],
         "probe6_extract": [((x8,), probes.scalar_extract, probes.scalar_extract_plain)],
-        "probe6_bid": [((x8,), probes.broadcast_last_lane, probes.broadcast_last_lane_plain)],
-        "probe6_dot3": [((x8,), probes.onehot_count, probes.onehot_count_plain)],
+        "probe6_bid": [((x8,), probes.broadcast_last_lane, probes.broadcast_last_lane_plain),
+                       *((args, probes.broadcast_last_lane, probes.broadcast_last_lane_plain)
+                         for fn, args in p6.values() if fn == "broadcast_last_lane")],
+        "probe6_dot3": [((x8,), probes.onehot_count, probes.onehot_count_plain),
+                        *((args, probes.onehot_count, probes.onehot_count_plain)
+                          for fn, args in p6.values() if fn == "onehot_count")],
         "probe6_rmw": [((i300,), probes.window_rmw, probes.window_rmw_plain),
                        *((args, probes.window_rmw, probes.window_rmw_plain)
                          for fn, args in p6.values() if fn == "window_rmw")],
@@ -2288,12 +2308,19 @@ def probes_phase(dev, gpu):
         return tuple(t for t in out if t is not None)
 
     errs = {}
+    before = kernels.counts()
     for name, variants in cases.items():
         errs[name] = max(max_abs_err(tensors(kernel(*args)), tensors(plain(*args)))
                          for args, kernel, plain in variants)
     torch.cuda.synchronize()
     if any(errs.values()):
         raise AssertionError(f"probe kernels differ from their plain versions: {errs}")
+    # every P6 case launched its kernel once
+    after = kernels.counts()
+    wrong = {name: after[name] - before[name] for name, variants in cases.items()
+             if name.startswith("probe6") and after[name] - before[name] != len(variants)}
+    if wrong:
+        raise AssertionError(f"P6 cases launched their kernels wrongly: {wrong}")
     # k_d's window does not fit a row of 100 words: the wrapper raises before a launch, as the plain version does
     short = [(v, n_wp) for v, n_wp in p8.values() if n_wp < probes.WIN]
     before = kernels.counts()["probe8_d"]

@@ -381,7 +381,9 @@ def test_probe6_kernels(dev, tile):
     for name, args in cases.values():
         _equal((getattr(probes, name)(*args),), (getattr(probes, name + "_plain")(*args),))
     assert kernels.counts()["probe6_rmw"] == sum(n == "window_rmw" for n, _ in cases.values())
-    assert kernels.counts()["probe6_shift"] == 1 + sum(n == "var_shift" for n, _ in cases.values())
+    for name, counter in (("var_shift", "probe6_shift"), ("broadcast_last_lane", "probe6_bid"),
+                          ("onehot_count", "probe6_dot3")):
+        assert kernels.counts()[counter] == 1 + sum(n == name for n, _ in cases.values()), name
     for i, n_words in tc.P6_RMW_BAD:  # a bad window sets the flag word; a short row raises before a launch
         with pytest.raises(IndexError, match="window outside the row"):
             probes.window_rmw(torch.tensor([[i]], dtype=torch.int32, device=dev), n_words)
@@ -427,6 +429,54 @@ def test_probe6_roll_sublane_kernel(dev, layout):
     kernels.reset_counts()
     assert torch.equal(probes.roll_sublane(x).cpu(), torch.roll(x, 1, 0).cpu())
     assert kernels.counts()["probe6_roll_sublane"] == 1
+
+
+def _tile_off_a_bound(dev):
+    """The test tile, and a tile one word past a 16-byte bound."""
+    x = torch.arange(1024, dtype=torch.int32, device=dev).reshape(8, 128) * 3 - 500
+    return x, torch.full((1025,), -1, dtype=torch.int32, device=dev)[1:].view(8, 128)
+
+
+@pytest.mark.parametrize("fn,end", [(fn, end) for fn in ("tdc_probe6_roll_lane", "tdc_probe6_roll_sublane",
+                                                         "tdc_probe6_bid", "tdc_probe6_dot3", "tdc_probe6_shift")
+                                    for end in ("x", "o") if (fn, end) != ("tdc_probe6_bid", "x")])
+def test_probe6_launcher_refuses_a_tile_off_a_bound(dev, fn, end):
+    """The five P6 launchers that move 16-byte vectors return
+    cudaErrorMisalignedAddress (716) for a tile one word past a 16-byte
+    bound that they move in vectors (k_bid reads its input a word at a
+    time, so only its output): kernels.launch raises and counts nothing,
+    the output is untouched, and the next aligned launch is right."""
+    from tudocomp_tpu_torch import probes
+
+    x, off = _tile_off_a_bound(dev)
+    args = (off.copy_(x), torch.empty_like(x)) if end == "x" else (x, off)
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        kernels.launch(fn, *args)
+    assert sum(kernels.counts().values()) == 0
+    if end == "o":
+        assert (off == -1).all()
+    plain = {"tdc_probe6_roll_lane": probes.roll_lane_plain, "tdc_probe6_roll_sublane": probes.roll_sublane_plain,
+             "tdc_probe6_bid": probes.broadcast_last_lane_plain, "tdc_probe6_dot3": probes.onehot_count_plain,
+             "tdc_probe6_shift": probes.var_shift_plain}[fn]
+    o = torch.empty_like(x)
+    kernels.launch(fn, x, o)
+    _equal((o,), (plain(x),))
+    assert sum(kernels.counts().values()) == 1
+
+
+def test_probe6_bid_launches_on_an_input_off_a_bound(dev):
+    """k_bid's launcher takes an input tile one word past a 16-byte bound,
+    which it reads a word at a time, and gives the plain version's answer."""
+    from tudocomp_tpu_torch import probes
+
+    x, off = _tile_off_a_bound(dev)
+    off.copy_(x)
+    o = torch.empty_like(x)
+    kernels.reset_counts()
+    kernels.launch("tdc_probe6_bid", off, o)
+    _equal((o,), (probes.broadcast_last_lane_plain(x),))
+    assert sum(kernels.counts().values()) == 1
 
 
 @pytest.mark.parametrize("level", [1, 2, 3, 4, 5])

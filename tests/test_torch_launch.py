@@ -24,6 +24,10 @@ Two kinds of checks, each case its own test:
     or a row of 383 words raises IndexError before any launch, a good i
     launches once through kernels.launch_flagged; a tile launches once
     through kernels.launch;
+  - probes.onehot_count and probes.broadcast_last_lane against the fake:
+    a tile launches once through kernels.launch with a 16-byte-aligned
+    contiguous tile of its values (the wrapper's copy where the tile is off
+    a bound or transposed); a [16, 128] tile launches nothing;
   - the four probe8 wrappers on empty inputs: no rows (B = 0) give empty
     tensors and launch nothing, rows of no tile (T = 0) launch once.
 The `cuda` tests at the end need a card and skip here:
@@ -406,6 +410,48 @@ def test_var_shift_launch_against_a_fake_library(fake, monkeypatch):
     assert fake.tdc_probe6_shift.calls == [(x.data_ptr(), out.data_ptr(), STREAMS[1])]
     assert fake.tdc_mapped_word.calls == [] and fake.tdc_stream_wait.calls == []
     assert kernels.counts()["probe6_shift"] == 1
+
+
+TILE_WRAPPERS = {"tdc_probe6_dot3": "onehot_count", "tdc_probe6_bid": "broadcast_last_lane"}
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "one word off a bound", "transposed", "[16, 128]"])
+@pytest.mark.parametrize("fn", sorted(TILE_WRAPPERS))
+def test_tile_launch_against_a_fake_library(fake, monkeypatch, fn, layout):
+    """probes.onehot_count and probes.broadcast_last_lane on a card tile
+    launch their kernel once through kernels.launch (no flag word, no
+    stream wait) with a 16-byte-aligned contiguous tile of the same values:
+    the tile itself, or the wrapper's copy of a tile off a bound or
+    transposed. A [16, 128] tile raises ValueError and launches nothing."""
+    from tudocomp_tpu_torch import probes
+
+    real_empty_like = torch.empty_like
+    monkeypatch.setattr(torch, "empty_like", lambda x: _on_card(real_empty_like(x), x.get_device()))
+    values = torch.arange(1024, dtype=torch.int32).reshape(8, 128) * 7919 - 3000
+    if layout == "[16, 128]":
+        with pytest.raises(ValueError):
+            getattr(probes, TILE_WRAPPERS[fn])(_card1(torch.zeros((16, 128), dtype=torch.int32)))
+        assert _calls(fake) == [] and kernels.counts()[kernels.KERNELS[fn][0]] == 0
+        return
+    if layout == "one word off a bound":
+        x = torch.empty(1025, dtype=torch.int32)[1:].view(8, 128).copy_(values)
+        assert x.data_ptr() % 16
+    elif layout == "transposed":
+        x = values.t().contiguous().t()
+    else:
+        x = values
+    x = _card1(x)
+    seen = []
+    getattr(fake, fn).effect = lambda xp, op, stream: seen.append(
+        np.ctypeslib.as_array((ctypes.c_int32 * 1024).from_address(xp)).copy())
+    out = getattr(probes, TILE_WRAPPERS[fn])(x)
+    assert out.shape == (8, 128) and out.get_device() == 1
+    ((xp, op, stream),) = getattr(fake, fn).calls
+    assert op == out.data_ptr() and stream == STREAMS[1]
+    assert xp % 16 == 0 and op % 16 == 0 and (xp == x.data_ptr()) == (layout == "contiguous")
+    np.testing.assert_array_equal(seen[0], values.reshape(-1).numpy())  # the tile's values, row-major
+    assert fake.tdc_mapped_word.calls == [] and fake.tdc_stream_wait.calls == []
+    assert kernels.counts()[kernels.KERNELS[fn][0]] == 1
 
 
 P8_WRAPPERS = {"tdc_probe8_a": "carry_revisit", "tdc_probe8_b": "carry_scans",

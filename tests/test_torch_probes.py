@@ -255,14 +255,15 @@ def test_probe6_window_rmw_plain_first_window(i, n_words):
 
 @pytest.mark.parametrize("case", list(tc.p6_cases()))
 def test_probe6_cases_match_the_bodies(case):
-    """The card's cases (tc.p6_cases) on the CPU: var_shift against k_shift
+    """The card's cases (tc.p6_cases) on the CPU: var_shift,
+    broadcast_last_lane and onehot_count against k_shift, k_bid and k_dot3
     in interpret mode; window_rmw against k_rmw at its 1152 words, and at
     other lengths against the window written out in numpy."""
     name, args = tc.p6_cases()[case]
     got = getattr(probes, name)(*args)
-    if name == "var_shift":
-        (k_shift,) = _functions("probe6.py", ["k_shift"])
-        want = pl.pallas_call(k_shift, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
+    if name != "window_rmw":
+        body = _probe6_bodies()[name][0]
+        want = pl.pallas_call(body, out_shape=jax.ShapeDtypeStruct((8, 128), jnp.int32),
                               interpret=True)(jnp.asarray(args[0].contiguous().numpy()))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         return

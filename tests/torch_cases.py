@@ -249,7 +249,9 @@ def p6_cases(device="cpu", seed: int = 6) -> dict:
     more than one element and not contiguous (its first element counts);
     var_shift on the probe's arange, signed and extreme values, and on
     tiles one word off a 16-byte bound and transposed (the wrapper copies
-    both into an aligned tile)."""
+    both into an aligned tile); broadcast_last_lane and onehot_count on
+    those three tiles and four more (below), each also off a bound and
+    transposed."""
     rng = np.random.default_rng(seed)
 
     def i32(a):
@@ -264,14 +266,40 @@ def p6_cases(device="cpu", seed: int = 6) -> dict:
     def tile(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
+    def off_a_bound(a):  # the tile's values one word past a 16-byte bound
+        off = torch.empty(8 * 128 + 1, dtype=torch.int32, device=device)[1:]
+        off.copy_(tile(a).reshape(-1))
+        return off.view(8, 128)
+
+    def transposed(a):  # the tile's values, column-major
+        return tile(a).t().contiguous().t()
+
+    arange = np.arange(1024).reshape(8, 128)
     signed = rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32)
-    cases["var_shift arange"] = ("var_shift", (tile(np.arange(1024).reshape(8, 128)),))
+    extremes = rng.choice(P6_EXTREMES, (8, 128))
+    cases["var_shift arange"] = ("var_shift", (tile(arange),))
     cases["var_shift signed"] = ("var_shift", (tile(signed),))
-    cases["var_shift extremes"] = ("var_shift", (tile(rng.choice(P6_EXTREMES, (8, 128))),))
-    off = torch.empty(8 * 128 + 1, dtype=torch.int32, device=device)[1:]
-    off.copy_(tile(signed).reshape(-1))
-    cases["var_shift one word off a bound"] = ("var_shift", (off.view(8, 128),))
-    cases["var_shift transposed"] = ("var_shift", (tile(signed).t().contiguous().t(),))
+    cases["var_shift extremes"] = ("var_shift", (tile(extremes),))
+    cases["var_shift one word off a bound"] = ("var_shift", (off_a_bound(signed),))
+    cases["var_shift transposed"] = ("var_shift", (transposed(signed),))
+    # broadcast_last_lane and onehot_count: the tiles above, one value over the whole tile
+    # (one bin of each row counts 128), values whose mods 384 all lie in [128, 384) (every
+    # count 0), negatives in [-384, -257] (mods 0 .. 127), and a lane's four values equal
+    # (one lane adds to one bin four times); each also off a bound and transposed
+    tiles = {
+        "arange": arange,
+        "signed": signed,
+        "extremes": extremes,
+        "one value": np.full((8, 128), 5),
+        "mods at or above 128": rng.integers(128, 384, (8, 128)) + 384 * rng.integers(-5_000_000, 5_000_000, (8, 128)),
+        "negatives -384 .. -257": rng.integers(-384, -256, (8, 128)),
+        "four equal a lane": np.repeat(rng.integers(-384, 128, (8, 32)), 4, axis=1),
+    }
+    for fn in ("broadcast_last_lane", "onehot_count"):
+        for name, a in tiles.items():
+            cases[f"{fn} {name}"] = (fn, (tile(a),))
+            cases[f"{fn} {name}, one word off a bound"] = (fn, (off_a_bound(a),))
+            cases[f"{fn} {name}, transposed"] = (fn, (transposed(a),))
     return cases
 
 

@@ -23,7 +23,8 @@
 //     one CTA-wide scan: warp shuffles, then the 32 warp totals in shared
 //     memory. The segmented XOR scan per target word runs over a warp.
 //   - The one-hot products on the matrix unit, which scattered counts and
-//     word parts, are atomicAdd / atomicXor into shared memory.
+//     word parts, are atomicAdd / atomicXor into shared memory: k_dot3's
+//     into 128 counters a warp, one warp a row, probe7's into a CTA's window.
 //   - The TPU grid ran its tile axis in order and carried a scalar in SMEM
 //     from one step to the next; here probe8's row of tiles has one CTA for
 //     its carry, which reduces what the carry needs in u32 (k_a one warp
@@ -36,7 +37,8 @@
 //     once, in 16-byte stores, with no zeroing pass: for k_d the XOR of
 //     every window over the word, for k_rmw 7 inside the one window and 0
 //     outside it.
-//   - k_shift is an elementwise pass in the rolls' shape.
+//   - k_shift is an elementwise pass and k_bid a broadcast of each row's
+//     last word, both in the rolls' shape.
 // A kernel that finds a bad input (the gather, rmw, the pack at level 1-5)
 // stores 1 into `err`, a word of pinned host memory mapped for the card
 // (csrc/launch.cu): a plain store, never an atomic, which the host reads
@@ -300,25 +302,44 @@ __global__ void __launch_bounds__(TILE) p6_extract_kernel(const int32_t* x, int3
   o[tid] = s;
 }
 
-// every row becomes its last lane
-__global__ void __launch_bounds__(TILE) p6_bid_kernel(const int32_t* x, int32_t* o) {
-  __shared__ int32_t last[ROWS];
-  const int tid = threadIdx.x, r = tid >> 7, c = tid & 127;
-  if (c == LANES - 1) last[r] = x[tid];
-  __syncthreads();
-  o[tid] = last[r];
+// k_bid (etc/probe6.py:65): every row becomes its last lane, out[r, c] = x[r, 127]. The rolls'
+// shape: one warp a row (8 warps); every lane of warp r loads the one word x[r, 127] (one
+// broadcast transaction a warp) and stores it four times in one 16-byte vector. No shared
+// memory, no barrier. Bound on the H100: a launch; by bytes 4128 B, the 8 last lanes read
+// and the tile written (0.0000012 ms).
+__global__ void __launch_bounds__(ROWS * 32) p6_bid_kernel(const int32_t* __restrict__ x,
+                                                           int4* __restrict__ o) {
+  const int32_t v = __ldg(x + (threadIdx.x >> 5) * LANES + LANES - 1);
+  o[threadIdx.x] = make_int4(v, v, v, v);
 }
 
-// o[r, j] = number of lanes l of row r with x[r, l] mod 384 == j, for j < 128
-// (the one-hot [8, 384, 128] x ones product, plane 0, columns 0..127)
-__global__ void __launch_bounds__(TILE) p6_dot3_kernel(const int32_t* x, int32_t* o) {
-  __shared__ int32_t hist[ROWS][WIN];
-  const int tid = threadIdx.x, r = tid >> 7, c = tid & 127;
-  for (int j = tid; j < ROWS * WIN; j += TILE) (&hist[0][0])[j] = 0;
-  __syncthreads();
-  atomicAdd(&hist[r][floor_mod(x[tid], WIN)], 1);
-  __syncthreads();
-  o[tid] = hist[r][c];
+// k_dot3 (etc/probe6.py:74): out[r, j] = the number of lanes l of row r with x[r, l] mod 384
+// == j, for j < 128 (the one-hot [8, 384, 128] x ones product, plane 0, columns 0..127). One
+// warp a row (8 warps): lane l loads elements 4l .. 4l + 3 of its row in one 16-byte vector
+// and takes each one's floor mod 384 (in [0, 384), as jnp's %; -2^31 gives 256). The warp
+// keeps the row's 128 counters, bins 0..127 only, in 512 bytes of shared memory of its own,
+// zeroed by one 16-byte store a lane; each lane adds its elements that fall below 128 with
+// four shared atomicAdds, and lane l then stores counters 4l .. 4l + 3 in one 16-byte vector.
+// A __syncwarp orders the zeroing before the adds and the adds before the stores: no CTA
+// barrier, no zeroing of bins that are never read. Rounds of __match_any_sync with one plain
+// add a bin, in place of the atomics, took 0.00225 ms on the probe's arange tile against
+// 0.00116 (an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py --turns): a match of 32 distinct
+// bins costs more than the atomics it saves, and a row of one bin cost the atomics no more.
+// Bound on the H100: a launch and four dependent shared steps; by bytes 8 KiB (0.0000024 ms).
+__global__ void __launch_bounds__(ROWS * 32) p6_dot3_kernel(const int4* __restrict__ x,
+                                                            int4* __restrict__ o) {
+  __shared__ int4 bins[ROWS][32];  // warp r's 128 counters
+  const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int4 v = x[threadIdx.x];
+  bins[r][lane] = make_int4(0, 0, 0, 0);
+  __syncwarp();
+  int* count = reinterpret_cast<int*>(bins[r]);
+  const int m[4] = {floor_mod(v.x, WIN), floor_mod(v.y, WIN), floor_mod(v.z, WIN), floor_mod(v.w, WIN)};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (m[k] < LANES) atomicAdd(count + m[k], 1);
+  __syncwarp();
+  o[threadIdx.x] = bins[r][lane];
 }
 
 // k_rmw (etc/probe6.py:92): a zeroed row of n words with words [a, a + 384) XORed with 7,
@@ -814,7 +835,7 @@ extern "C" int tdc_probe3_gather(const void* S, const void* idx, void* out, int 
   return last_error();
 }
 
-// x, o: one [8, 128] int32 tile each (the two rolls: 16-byte aligned).
+// x, o: one [8, 128] int32 tile each (16-byte aligned, but for k_extract's tiles and k_bid's x).
 extern "C" int tdc_probe6_roll_lane(const void* x, void* o, void* stream) {
   if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
   p6_roll_lane_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x), static_cast<int4*>(o));
@@ -831,11 +852,13 @@ extern "C" int tdc_probe6_extract(const void* x, void* o, void* stream) {
   return last_error();
 }
 extern "C" int tdc_probe6_bid(const void* x, void* o, void* stream) {
-  p6_bid_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
+  if ((uintptr_t)o & 15) return (int)cudaErrorMisalignedAddress;  // x is read a word at a time
+  p6_bid_kernel<<<1, ROWS * 32, 0, STREAM>>>(I32(x), static_cast<int4*>(o));
   return last_error();
 }
 extern "C" int tdc_probe6_dot3(const void* x, void* o, void* stream) {
-  p6_dot3_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
+  if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
+  p6_dot3_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x), static_cast<int4*>(o));
   return last_error();
 }
 // i [1] int32 on the device, o [n] u32 (4-byte aligned), err the mapped flag word. A CTA
