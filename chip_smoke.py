@@ -103,7 +103,11 @@ line each:
                     also on p6_cases (the arange, signed, extreme, one
                     value, mods at or above 128, negatives -384 .. -257,
                     four equal a lane; each also off a bound and
-                    transposed), every P6 case launching its kernel once;
+                    transposed); k_extract on the arange, signed and
+                    extreme tiles and on four with x[7, 0] at -2^31,
+                    2^31 - 1, 2^30 and -2^30 - 1 (each also off a bound
+                    and transposed), every P6 case launching its kernel
+                    once;
                     the gather also on random
                     indices over whole rows and
                     on probes.gather_cases's edge shapes, with the arm each
@@ -281,7 +285,8 @@ kernels and times, first (late in a long process the profiler drops
 events), the seven P6 kernels on the probe's tile and row and one
 PyTorch elementwise call on the tile, the launch floor (p6_timing), the
 four P8 kernels at the probe's shape (p8_timing), the registers and
-spills of k_bid, k_dot3, k_rmw, k_shift and the P8 kernels (ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
+spills of k_extract, k_bid, k_dot3, k_rmw, k_shift and the P8 kernels
+(ptxas_report), J on phase 16's four 16 MiB inputs and I on each device
 round of phase 12's 16 MiB grammar (device ms by __global__ function under either
 design's names), then C on phase 2's histograms, G and the shared table's stage
 (shared_tables, which is C's int64 instance where the checkout has one) on
@@ -1126,8 +1131,8 @@ def host_plcp(text, sa):
 def dh_phase(dev, gpu, package: str) -> dict:
     """Kernels A-J, P6, P7 and P8 alone, from the package first on sys.path:
     the P6 kernels and the launch floor (p6_timing), the P8 kernels at the
-    probe's shape (p8_timing), the registers and spills of k_bid, k_dot3, k_rmw, k_shift
-    and the P8 kernels (ptxas_report), then J on
+    probe's shape (p8_timing), the registers and spills of k_extract, k_bid,
+    k_dot3, k_rmw, k_shift and the P8 kernels (ptxas_report), then J on
     phase 16's four 16 MiB inputs (j_timing) and I on each device round of
     phase 12's 16 MiB grammar (i_timing), first; C, G
     and the shared table's stage (table_timing); A and B at phase 2's
@@ -1152,7 +1157,8 @@ def dh_phase(dev, gpu, package: str) -> dict:
     p6 = p6_timing(probes, dev)  # first: late in a long process the profiler drops events
     p8 = p8_timing(probes, dev)
     ptxas = ptxas_report(kernels, "probes.cu", [DEVICE_FNS[name][0] for name in (
-        "probe6_bid", "probe6_dot3", "probe6_rmw", "probe6_shift", *(f"probe8_{x}" for x in "abcd"))])
+        "probe6_extract", "probe6_bid", "probe6_dot3", "probe6_rmw", "probe6_shift",
+        *(f"probe8_{x}" for x in "abcd"))])
     mtf, esp = j_timing(dev), i_timing(dev)
     torch.cuda.empty_cache()
     tables = table_timing(dev)
@@ -2283,7 +2289,9 @@ def probes_phase(dev, gpu):
                           ((S, rand_idx), probes.gather, probes.gather_plain)],
         "probe6_roll_lane": [((x,), probes.roll_lane, probes.roll_lane_plain) for x in (x8, xs)],
         "probe6_roll_sublane": [((x8,), probes.roll_sublane, probes.roll_sublane_plain)],
-        "probe6_extract": [((x8,), probes.scalar_extract, probes.scalar_extract_plain)],
+        "probe6_extract": [((x8,), probes.scalar_extract, probes.scalar_extract_plain),
+                           *((args, probes.scalar_extract, probes.scalar_extract_plain)
+                             for fn, args in p6.values() if fn == "scalar_extract")],
         "probe6_bid": [((x8,), probes.broadcast_last_lane, probes.broadcast_last_lane_plain),
                        *((args, probes.broadcast_last_lane, probes.broadcast_last_lane_plain)
                          for fn, args in p6.values() if fn == "broadcast_last_lane")],

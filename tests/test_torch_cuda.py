@@ -382,7 +382,7 @@ def test_probe6_kernels(dev, tile):
         _equal((getattr(probes, name)(*args),), (getattr(probes, name + "_plain")(*args),))
     assert kernels.counts()["probe6_rmw"] == sum(n == "window_rmw" for n, _ in cases.values())
     for name, counter in (("var_shift", "probe6_shift"), ("broadcast_last_lane", "probe6_bid"),
-                          ("onehot_count", "probe6_dot3")):
+                          ("onehot_count", "probe6_dot3"), ("scalar_extract", "probe6_extract")):
         assert kernels.counts()[counter] == 1 + sum(n == name for n, _ in cases.values()), name
     for i, n_words in tc.P6_RMW_BAD:  # a bad window sets the flag word; a short row raises before a launch
         with pytest.raises(IndexError, match="window outside the row"):
@@ -438,14 +438,17 @@ def _tile_off_a_bound(dev):
 
 
 @pytest.mark.parametrize("fn,end", [(fn, end) for fn in ("tdc_probe6_roll_lane", "tdc_probe6_roll_sublane",
-                                                         "tdc_probe6_bid", "tdc_probe6_dot3", "tdc_probe6_shift")
-                                    for end in ("x", "o") if (fn, end) != ("tdc_probe6_bid", "x")])
+                                                         "tdc_probe6_bid", "tdc_probe6_dot3", "tdc_probe6_shift",
+                                                         "tdc_probe6_extract")
+                                    for end in ("x", "o")
+                                    if end == "o" or fn not in ("tdc_probe6_bid", "tdc_probe6_extract")])
 def test_probe6_launcher_refuses_a_tile_off_a_bound(dev, fn, end):
-    """The five P6 launchers that move 16-byte vectors return
+    """The six P6 launchers that move 16-byte vectors return
     cudaErrorMisalignedAddress (716) for a tile one word past a 16-byte
-    bound that they move in vectors (k_bid reads its input a word at a
-    time, so only its output): kernels.launch raises and counts nothing,
-    the output is untouched, and the next aligned launch is right."""
+    bound that they move in vectors (k_bid and k_extract read their input
+    a word at a time, so only their output): kernels.launch raises and
+    counts nothing, the output is untouched, and the next aligned launch is
+    right."""
     from tudocomp_tpu_torch import probes
 
     x, off = _tile_off_a_bound(dev)
@@ -458,7 +461,7 @@ def test_probe6_launcher_refuses_a_tile_off_a_bound(dev, fn, end):
         assert (off == -1).all()
     plain = {"tdc_probe6_roll_lane": probes.roll_lane_plain, "tdc_probe6_roll_sublane": probes.roll_sublane_plain,
              "tdc_probe6_bid": probes.broadcast_last_lane_plain, "tdc_probe6_dot3": probes.onehot_count_plain,
-             "tdc_probe6_shift": probes.var_shift_plain}[fn]
+             "tdc_probe6_shift": probes.var_shift_plain, "tdc_probe6_extract": probes.scalar_extract_plain}[fn]
     o = torch.empty_like(x)
     kernels.launch(fn, x, o)
     _equal((o,), (plain(x),))
@@ -476,6 +479,21 @@ def test_probe6_bid_launches_on_an_input_off_a_bound(dev):
     kernels.reset_counts()
     kernels.launch("tdc_probe6_bid", off, o)
     _equal((o,), (probes.broadcast_last_lane_plain(x),))
+    assert sum(kernels.counts().values()) == 1
+
+
+def test_probe6_extract_launches_on_an_input_off_a_bound(dev):
+    """k_extract's launcher takes an input tile one word past a 16-byte
+    bound, from which it reads the one word x[7, 0], and gives the plain
+    version's answer."""
+    from tudocomp_tpu_torch import probes
+
+    x, off = _tile_off_a_bound(dev)
+    off.copy_(x)
+    o = torch.empty_like(x)
+    kernels.reset_counts()
+    kernels.launch("tdc_probe6_extract", off, o)
+    _equal((o,), (probes.scalar_extract_plain(x),))
     assert sum(kernels.counts().values()) == 1
 
 

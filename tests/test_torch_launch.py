@@ -412,14 +412,15 @@ def test_var_shift_launch_against_a_fake_library(fake, monkeypatch):
     assert kernels.counts()["probe6_shift"] == 1
 
 
-TILE_WRAPPERS = {"tdc_probe6_dot3": "onehot_count", "tdc_probe6_bid": "broadcast_last_lane"}
+TILE_WRAPPERS = {"tdc_probe6_dot3": "onehot_count", "tdc_probe6_bid": "broadcast_last_lane",
+                 "tdc_probe6_extract": "scalar_extract"}
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "one word off a bound", "transposed", "[16, 128]"])
 @pytest.mark.parametrize("fn", sorted(TILE_WRAPPERS))
 def test_tile_launch_against_a_fake_library(fake, monkeypatch, fn, layout):
-    """probes.onehot_count and probes.broadcast_last_lane on a card tile
-    launch their kernel once through kernels.launch (no flag word, no
+    """probes.onehot_count, probes.broadcast_last_lane and
+    probes.scalar_extract on a card tile launch their kernel once through kernels.launch (no flag word, no
     stream wait) with a 16-byte-aligned contiguous tile of the same values:
     the tile itself, or the wrapper's copy of a tile off a bound or
     transposed. A [16, 128] tile raises ValueError and launches nothing."""

@@ -256,9 +256,10 @@ def test_probe6_window_rmw_plain_first_window(i, n_words):
 @pytest.mark.parametrize("case", list(tc.p6_cases()))
 def test_probe6_cases_match_the_bodies(case):
     """The card's cases (tc.p6_cases) on the CPU: var_shift,
-    broadcast_last_lane and onehot_count against k_shift, k_bid and k_dot3
-    in interpret mode; window_rmw against k_rmw at its 1152 words, and at
-    other lengths against the window written out in numpy."""
+    broadcast_last_lane, onehot_count and scalar_extract against k_shift,
+    k_bid, k_dot3 and k_extract in interpret mode; window_rmw against k_rmw
+    at its 1152 words, and at other lengths against the window written out
+    in numpy."""
     name, args = tc.p6_cases()[case]
     got = getattr(probes, name)(*args)
     if name != "window_rmw":

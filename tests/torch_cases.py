@@ -251,7 +251,10 @@ def p6_cases(device="cpu", seed: int = 6) -> dict:
     tiles one word off a 16-byte bound and transposed (the wrapper copies
     both into an aligned tile); broadcast_last_lane and onehot_count on
     those three tiles and four more (below), each also off a bound and
-    transposed."""
+    transposed; scalar_extract on the three tiles and on four random tiles
+    whose x[7, 0] is -2^31, 2^31 - 1, 2^30 or -2^30 - 1 (each doubled word
+    wraps in int32), each also off a bound and transposed (the
+    transposed tile holds x[7, 0] at word 7, not 896)."""
     rng = np.random.default_rng(seed)
 
     def i32(a):
@@ -300,6 +303,17 @@ def p6_cases(device="cpu", seed: int = 6) -> dict:
             cases[f"{fn} {name}"] = (fn, (tile(a),))
             cases[f"{fn} {name}, one word off a bound"] = (fn, (off_a_bound(a),))
             cases[f"{fn} {name}, transposed"] = (fn, (transposed(a),))
+    # scalar_extract: the first three tiles, and x[7, 0] at int32's ends and just past half of
+    # them, where 2 * x[7, 0] wraps to 0, -2, -2^31 and 2^31 - 2
+    ends = {}
+    for v in (-(1 << 31), (1 << 31) - 1, 1 << 30, -(1 << 30) - 1):
+        a = rng.integers(-(1 << 31), 1 << 31, (8, 128)).astype(np.int32)
+        a[7, 0] = v
+        ends[f"x[7, 0] = {v}"] = a
+    for name, a in {**{k: tiles[k] for k in ("arange", "signed", "extremes")}, **ends}.items():
+        cases[f"scalar_extract {name}"] = ("scalar_extract", (tile(a),))
+        cases[f"scalar_extract {name}, one word off a bound"] = ("scalar_extract", (off_a_bound(a),))
+        cases[f"scalar_extract {name}, transposed"] = ("scalar_extract", (transposed(a),))
     return cases
 
 

@@ -37,8 +37,8 @@
 //     once, in 16-byte stores, with no zeroing pass: for k_d the XOR of
 //     every window over the word, for k_rmw 7 inside the one window and 0
 //     outside it.
-//   - k_shift is an elementwise pass and k_bid a broadcast of each row's
-//     last word, both in the rolls' shape.
+//   - k_shift is an elementwise pass, k_bid a broadcast of each row's last
+//     word and k_extract of one doubled word, all three in the rolls' shape.
 // A kernel that finds a bad input (the gather, rmw, the pack at level 1-5)
 // stores 1 into `err`, a word of pinned host memory mapped for the card
 // (csrc/launch.cu): a plain store, never an atomic, which the host reads
@@ -292,14 +292,17 @@ __global__ void __launch_bounds__(ROWS * 32) p6_roll_sublane_kernel(const int4* 
   o[threadIdx.x] = x[((r + ROWS - 1) & (ROWS - 1)) * 32 + lane];
 }
 
-// every element becomes 2 * x[7, 0]: a scalar taken out of a computed vector
-__global__ void __launch_bounds__(TILE) p6_extract_kernel(const int32_t* x, int32_t* o) {
-  __shared__ int32_t s;
-  const int tid = threadIdx.x;
-  const int32_t v = x[tid] * 2;
-  if (tid == 7 * LANES) s = v;
-  __syncthreads();
-  o[tid] = s;
+// k_extract (etc/probe6.py:56): every element becomes 2 * x[7, 0], a scalar taken out of a
+// computed vector, wrapping in int32 as the Pallas body's jnp product does. The rolls' shape:
+// one warp a row (8 warps); every lane loads the one word x[7, 0] (one broadcast transaction a
+// warp), doubles it in uint32 (defined C++ with the same bits; a signed int32 product that
+// overflows is not) and stores it four times in one 16-byte vector. No shared memory, no
+// barrier, no atomics. Bound on the H100: a launch; by bytes 4100 B, the one word read and the
+// tile written (0.0000012 ms at 3.35 TB/s).
+__global__ void __launch_bounds__(ROWS * 32) p6_extract_kernel(const int32_t* __restrict__ x,
+                                                               uint4* __restrict__ o) {
+  const uint32_t v = (uint32_t)__ldg(x + 7 * LANES) * 2u;
+  o[threadIdx.x] = make_uint4(v, v, v, v);
 }
 
 // k_bid (etc/probe6.py:65): every row becomes its last lane, out[r, c] = x[r, 127]. The rolls'
@@ -835,7 +838,7 @@ extern "C" int tdc_probe3_gather(const void* S, const void* idx, void* out, int 
   return last_error();
 }
 
-// x, o: one [8, 128] int32 tile each (16-byte aligned, but for k_extract's tiles and k_bid's x).
+// x, o: one [8, 128] int32 tile each (16-byte aligned, but for k_extract's and k_bid's x).
 extern "C" int tdc_probe6_roll_lane(const void* x, void* o, void* stream) {
   if (((uintptr_t)x | (uintptr_t)o) & 15) return (int)cudaErrorMisalignedAddress;
   p6_roll_lane_kernel<<<1, ROWS * 32, 0, STREAM>>>(static_cast<const int4*>(x), static_cast<int4*>(o));
@@ -848,7 +851,8 @@ extern "C" int tdc_probe6_roll_sublane(const void* x, void* o, void* stream) {
   return last_error();
 }
 extern "C" int tdc_probe6_extract(const void* x, void* o, void* stream) {
-  p6_extract_kernel<<<1, TILE, 0, STREAM>>>(I32(x), I32W(o));
+  if ((uintptr_t)o & 15) return (int)cudaErrorMisalignedAddress;  // x is read a word at a time
+  p6_extract_kernel<<<1, ROWS * 32, 0, STREAM>>>(I32(x), static_cast<uint4*>(o));
   return last_error();
 }
 extern "C" int tdc_probe6_bid(const void* x, void* o, void* stream) {
