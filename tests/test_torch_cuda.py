@@ -1012,3 +1012,32 @@ def test_two_gloo_ranks_on_one_card(dev, tmp_path):
             finally:
                 for v in ("TDC_DEVICE_SA", "TDC_DEVICE_LZSS", "TDC_DEVICE_HUFF"):
                     del os.environ[v]
+
+
+def test_lzss_lcp_copies_counted_by_the_funnel(dev, monkeypatch):
+    """One 1 MiB lzss_lcp encode on the card, both device gates open by size:
+    the copy funnel counts the text up (n bytes), SA, ISA and LCP down and
+    back up (4n each way each), and the factors down (3 x 8 bytes each)."""
+    from tudocomp_tpu_torch.stats import counters
+    from tudocomp_tpu_torch.stats.phase import StatPhase
+
+    for var in ("TDC_DEVICE_SA", "TDC_DEVICE_LZSS"):
+        monkeypatch.delenv(var, raising=False)
+    data = tc.english(1 << 20, seed=12)
+    assert 0 not in data
+    n = len(data) + 1  # the sentinel
+    kernels.reset_counts()
+    with StatPhase("root") as root:
+        c = compress("lzss_lcp(coder=huff)", data, device="cuda")
+    nf = int(next(p for p in root.children if p.title == "Factorize").stats["factors"])
+    snap = counters.snapshot()
+    assert snap["copy.to_device_bytes"] == n + 12 * n
+    assert snap["copy.to_host_bytes"] == 12 * n + 24 * nf
+    assert snap["copy.count"] == 10
+    assert snap["sa.rounds"] >= 2 and snap["sa.keys"] > n
+    assert root.stats["toDeviceBytes"] == 13 * n and root.stats["toHostBytes"] == 12 * n + 24 * nf
+    assert root.stats["copies"] == 10
+    text_ds = next(p for p in root.children if p.title == "Construct Text DS")
+    sa_phase = next(p for p in text_ds.children if p.title == "Construct SA")
+    assert (sa_phase.stats["rounds"], sa_phase.stats["keys"]) == (snap["sa.rounds"], snap["sa.keys"])
+    assert decompress(c, device="cpu") == data

@@ -179,7 +179,7 @@ def fake(monkeypatch):
     monkeypatch.setattr(kernels, "_fns", {})
     monkeypatch.setattr(kernels, "_flags", {})
     monkeypatch.setattr(kernels, "_lock", lock)
-    monkeypatch.setattr(kernels, "_counts", {name: 0 for name, _ in kernels.KERNELS.values()})
+    kernels.reset_counts()  # the launch counters live in the port's counter registry
     lib.loads, lib.lock, lib.cards = loads, lock, cards
     return lib
 

@@ -18,6 +18,7 @@ from .. import native
 from ..io.bitio import BitReader, BitWriter, bits_for, bits_for_arr
 from ..meta import Algorithm, Env
 from ..ranges import BitRange, Range
+from ..stats.phase import StatPhase
 
 
 @dataclass
@@ -91,15 +92,24 @@ def write_segmented(w: BitWriter, enc: "Encoder", columns) -> bool:
     enc.encode(v, r_c)` in one vectorized pack. Returns False if any column
     has no token form (caller falls back to scalar encoding).
     """
-    parts = []
-    for values, r, seg_counts in columns:
-        values = np.asarray(values)
-        ts = enc.tokens(values, r)
-        if ts is None:
-            return False
-        parts.append((ts.expand(), np.asarray(seg_counts, dtype=np.int64)))
+    with StatPhase("Tokens"):
+        parts = []
+        for values, r, seg_counts in columns:
+            values = np.asarray(values)
+            ts = enc.tokens(values, r)
+            if ts is None:
+                return False
+            parts.append((ts.expand(), np.asarray(seg_counts, dtype=np.int64)))
     if not parts:
         return True
+    with StatPhase("Pack bits"):
+        _pack_segmented(w, parts)
+    return True
+
+
+def _pack_segmented(w: BitWriter, parts) -> None:
+    """write_segmented's second half: interleave the columns' expanded
+    tokens segment by segment and write them."""
     S = len(parts[0][1])
 
     lib = native.get_lib()
@@ -120,7 +130,7 @@ def write_segmented(w: BitWriter, enc: "Encoder", columns) -> bool:
         )
         assert got == len(vals), "segment interleave metadata mismatch"
         w.write_ints(out_vals, out_bits, masked=True)  # masked natively
-        return True
+        return
 
     # per-column: cumulative token counts by value, segment starts in values
     col_data = []
@@ -150,7 +160,6 @@ def write_segmented(w: BitWriter, enc: "Encoder", columns) -> bool:
             out_bits[pos] = nb
         col_start = col_start + tps
     w.write_ints(out_vals, out_bits)
-    return True
 
 
 class Encoder(Algorithm):

@@ -24,6 +24,7 @@ import numpy as np
 from ..coders.base import write_segmented
 from ..literals import ArrayLiterals
 from ..ranges import LEN_MAX, MinDistributedRange, Range, bit_r, len_r, literal_r
+from ..stats.phase import StatPhase
 
 
 class Factors:
@@ -71,46 +72,47 @@ def uncovered_literals(text: np.ndarray, factors: Factors) -> np.ndarray:
 def encode_text(enc, w, text: np.ndarray, factors: Factors) -> None:
     """lzss::encode_text (LZSSCoding.hpp:19-92), vectorized."""
     n = len(text)
-    flen_min = factors.shortest
-    flen_max = factors.longest
+    with StatPhase("Stream columns"):
+        flen_min = factors.shortest
+        flen_max = factors.longest
 
-    fpos = factors.pos
-    flen = factors.len
-    nf = len(factors)
-    # gap before each factor; trailing gap after the last
-    prev_end = np.concatenate([[0], (fpos + flen)])  # [nf+1]
-    gaps = np.concatenate([fpos, [n]]) - prev_end  # [nf+1]
-    assert (gaps >= 0).all(), "factors overlap or unsorted"
-    fdist_max = int(gaps.max()) if len(gaps) else 0
+        fpos = factors.pos
+        flen = factors.len
+        nf = len(factors)
+        # gap before each factor; trailing gap after the last
+        prev_end = np.concatenate([[0], (fpos + flen)])  # [nf+1]
+        gaps = np.concatenate([fpos, [n]]) - prev_end  # [nf+1]
+        assert (gaps >= 0).all(), "factors overlap or unsorted"
+        fdist_max = int(gaps.max()) if len(gaps) else 0
 
-    text_r = Range(n)
-    fdist_r = Range(fdist_max)
-    flen_r = MinDistributedRange(flen_min, flen_max)
+        text_r = Range(n)
+        fdist_r = Range(fdist_max)
+        flen_r = MinDistributedRange(flen_min, flen_max)
 
-    enc.encode(n, len_r)
-    enc.encode(flen_min, text_r)
-    enc.encode(flen_max, text_r)
-    enc.encode(fdist_max, text_r)
+        enc.encode(n, len_r)
+        enc.encode(flen_min, text_r)
+        enc.encode(flen_max, text_r)
+        enc.encode(fdist_max, text_r)
 
-    # literal characters inside the gaps, grouped per segment
-    gap_literals = text[~factors.covered(n)]
+        # literal characters inside the gaps, grouped per segment
+        gap_literals = text[~factors.covered(n)]
 
-    has_gap = gaps > 0
-    # trailing segment emits flag+gap+literals only when a gap exists
-    seg_live = np.ones(nf + 1, dtype=np.int64)
-    seg_live[nf] = 1 if gaps[nf] > 0 else 0
+        has_gap = gaps > 0
+        # trailing segment emits flag+gap+literals only when a gap exists
+        seg_live = np.ones(nf + 1, dtype=np.int64)
+        seg_live[nf] = 1 if gaps[nf] > 0 else 0
 
-    live = seg_live > 0
-    gap_in_live = has_gap & live
-    lit_counts = np.where(live, gaps, 0)
-    factor_seg = np.concatenate([np.ones(nf, np.int64), [0]])
-    columns = [
-        (has_gap[live].astype(np.uint64), bit_r, seg_live),
-        (gaps[gap_in_live], fdist_r, gap_in_live.astype(np.int64)),
-        (gap_literals, literal_r, lit_counts),
-        (factors.src, text_r, factor_seg),
-        (factors.len, flen_r, factor_seg),
-    ]
+        live = seg_live > 0
+        gap_in_live = has_gap & live
+        lit_counts = np.where(live, gaps, 0)
+        factor_seg = np.concatenate([np.ones(nf, np.int64), [0]])
+        columns = [
+            (has_gap[live].astype(np.uint64), bit_r, seg_live),
+            (gaps[gap_in_live], fdist_r, gap_in_live.astype(np.int64)),
+            (gap_literals, literal_r, lit_counts),
+            (factors.src, text_r, factor_seg),
+            (factors.len, flen_r, factor_seg),
+        ]
 
     if not write_segmented(w, enc, columns):
         # scalar fallback (consuming coders without token forms)

@@ -20,7 +20,7 @@ import torch
 
 from ..base import Compressor
 from ..ds import flags
-from ..device import use_lzss_device
+from ..device import to_device, use_lzss_device
 from ..io.bitio import BitReader, BitWriter
 from ..io.inout import Input, Output
 from ..meta import Meta
@@ -39,10 +39,9 @@ def lcp_factorize(sa, isa, lcp, threshold: int, device="cpu") -> lzss_common.Fac
         # (ops/lzss_torch.py); the same factors as the host path
         from ..ops.lzss_torch import lzss_lcp_factorize_device
 
-        pos, src, ln = lzss_lcp_factorize_device(
-            *(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device) for a in (sa, isa, lcp)),
-            threshold,
-        )
+        with StatPhase("Upload SA ISA LCP"):
+            up = [to_device(np.ascontiguousarray(a, np.int32), device) for a in (sa, isa, lcp)]
+        pos, src, ln = lzss_lcp_factorize_device(*up, threshold)
         return lzss_common.Factors(pos, src, ln)
     lib = native.get_lib()
     if lib is not None and n:
@@ -122,12 +121,14 @@ class LZSSLCPCompressor(Compressor):
         with StatPhase("Encode"):
             coder_cls, coder_env = self.env.algorithm_for_option("coder")
             w = BitWriter()
-            enc = coder_cls.Encoder(
-                coder_env, w, lzss_common.literal_feed(text, factors)
-            )
+            with StatPhase("Literal feed"):
+                literals = lzss_common.literal_feed(text, factors)
+            with StatPhase("Coder setup"):
+                enc = coder_cls.Encoder(coder_env, w, literals)
             lzss_common.encode_text(enc, w, text, factors)
             enc.finalize()
-            out.write(w.getvalue())
+            with StatPhase("Join"):
+                out.write(w.getvalue())
 
     def decompress(self, inp: Input, out: Output) -> None:
         coder_cls, coder_env = self.env.algorithm_for_option("coder")

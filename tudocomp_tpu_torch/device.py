@@ -23,16 +23,33 @@ TDC_DEVICE_MTF for the MTF encode, kernel J (use_mtf_device). (The JAX package k
 decode from 4 MiB, from a TPU's gather costs; neither carries over.) The PLCP and LCP arrays have no gate of
 their own: TextDS computes them on the device exactly when the device built
 the suffix array, which then lies there already.
+
+`to_host` and `to_device` are a funnel for copies between a CUDA device
+and the host: each such copy adds its bytes to the counter registry
+(stats/counters.py: `copy.to_host_bytes`, `copy.to_device_bytes`,
+`copy.count`) and to the stats of the StatPhases open on its thread
+(toHostBytes, toDeviceBytes, copies), from the tensor's shape, with no
+read of the device beyond the copy itself. A tensor already where it is asked for counts nothing.
+Its scope is the `lzss_lcp` path (TextDS's text, SA, ISA, PLCP and LCP,
+`lcp_factorize`'s upload and results) and `bwt_from_sa`; the other paths
+(parallel/runtime.py's arenas, the Huffman, ESP and LZ78 ops) copy
+directly, and their bytes are in no counter.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
+
+from .stats import counters
+from .stats.phase import StatPhase
 
 __all__ = [
     "resolve",
+    "to_device",
+    "to_host",
     "use_device",
     "use_esp_device",
     "use_lcpcomp_decode_device",
@@ -65,6 +82,32 @@ def resolve(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _count_copy(counter: str, stat: str, nbytes: int) -> None:
+    """One copy of nbytes between a CUDA device and the host: into the
+    registry and the stats of the phases open on this thread."""
+    counters.add(counter, nbytes)
+    counters.add("copy.count")
+    if nbytes:
+        StatPhase.add_to_open(stat, nbytes)
+    StatPhase.add_to_open("copies", 1)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` as a host numpy array; a copy from a CUDA device is counted."""
+    if t.device.type == "cuda":
+        _count_copy("copy.to_host_bytes", "toHostBytes", t.nbytes)
+        t = t.cpu()
+    return t.numpy()
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host numpy array as a tensor on `device` (its memory shared where
+    that is the CPU); a copy to a CUDA device is counted."""
+    if torch.device(device).type == "cuda":
+        _count_copy("copy.to_device_bytes", "toDeviceBytes", a.nbytes)
+    return torch.from_numpy(a).to(device)
 
 
 def use_device(env_var: str, device: torch.device) -> bool:

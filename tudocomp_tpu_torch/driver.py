@@ -7,7 +7,10 @@ compressor's restrictions and run it; on decompress, read the header up to
 The algorithms come from a TorchRegistry bound to `device`, or from the
 `registry` given, whose device then wins. Each call logs its algorithm at
 INFO on the `tudocomp_tpu_torch.driver` logger (the command line's
---loglevel 0).
+--loglevel 0). A compress call opens the StatPhases "Select algorithm"
+(the registry, the id's parse and the selection) and "Join output" (the
+container's bytes), beside the compressor's own; the input's escaping is
+"Escape input" (io/inout.py).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Optional
 
 from .io.inout import Input, Output
 from .registry import TorchRegistry
+from .stats.phase import StatPhase
 
 __all__ = ["compress", "decompress"]
 
@@ -26,10 +30,11 @@ _LOG = logging.getLogger("tudocomp_tpu_torch.driver")
 def compress(
     id_string: str, data, device="cuda", raw: bool = False, registry: Optional[TorchRegistry] = None
 ) -> bytes:
-    reg = registry or TorchRegistry(device)
-    av = reg.parse_algorithm_id(id_string, "compressor")
-    comp = reg.select_algorithm(av, "compressor")
-    rest = comp.meta().input_restrictions
+    with StatPhase("Select algorithm"):
+        reg = registry or TorchRegistry(device)
+        av = reg.parse_algorithm_id(id_string, "compressor")
+        comp = reg.select_algorithm(av, "compressor")
+        rest = comp.meta().input_restrictions
     _LOG.info("compress: algorithm %s on %s", av.id_string(), reg.device)
     out = Output()
     if not raw:
@@ -41,7 +46,8 @@ def compress(
     if rest.has_restrictions:
         inp = inp.with_restrictions(rest)
     comp.compress(inp, out)
-    return out.raw_value()
+    with StatPhase("Join output"):
+        return out.raw_value()
 
 
 def decompress(

@@ -22,6 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..stats import counters
+from ..stats.phase import StatPhase
+
+
 def suffix_array_numpy(text: np.ndarray) -> np.ndarray:
     """Prefix-doubling SA on host. O(n log^2 n)."""
     text = np.asarray(text, dtype=np.uint8)
@@ -57,7 +61,11 @@ def suffix_array_device(text: torch.Tensor, return_isa: bool = False):
     Ranks use the head-rank convention (rank = SA index of the group's
     first member), so a suffix alone in its group holds its final SA
     position, the finished rank array is the ISA, and SA is its inverse.
-    One host sync a round (the count of suffixes still active).
+    One host sync a round (the count of suffixes still active). Counts its
+    rounds and the keys they sort, summed over the rounds, from host
+    integers the loop holds: into the registry (`sa.rounds`, `sa.keys` in
+    stats/counters.py) and as the stats `rounds` and `keys` of the open
+    StatPhase (TextDS's "Construct SA"), which --stats shows.
     """
     n = int(text.shape[0])
     dev = text.device
@@ -77,8 +85,11 @@ def suffix_array_device(text: torch.Tensor, return_isa: bool = False):
     rank = torch.empty(n, dtype=I64, device=dev)
     g = None  # group head rank of each active suffix, in sorted order
     k = _CHARS0
+    rounds = keys = 0
     while True:
         m = key.shape[0]
+        rounds += 1
+        keys += m
         j = torch.arange(m, dtype=I64, device=dev)
         d = torch.ones(m, dtype=torch.bool, device=dev)
         d[1:] = key[1:] != key[:-1]
@@ -105,6 +116,12 @@ def suffix_array_device(text: torch.Tensor, return_isa: bool = False):
         pos = pos[order]
         g = g[order]
         k *= 2
+    counters.add("sa.rounds", rounds)
+    counters.add("sa.keys", keys)
+    ph = StatPhase.current()
+    if ph is not None:
+        ph.log("rounds", rounds)
+        ph.log("keys", keys)
     isa = rank.to(torch.int32)
     sa = torch.empty(n, dtype=torch.int32, device=dev)
     sa[rank] = torch.arange(n, dtype=torch.int32, device=dev)

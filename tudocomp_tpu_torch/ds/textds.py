@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import use_sa_device
+from ..device import to_device, to_host, use_sa_device
 from ..stats.phase import StatPhase
 from . import flags
 from .suffix_array import (
@@ -139,10 +139,12 @@ class TextDS:
                     # require_isa asks for them
                     from .suffix_array import suffix_array_device
 
-                    self._text_d = torch.from_numpy(self.text).to(self.device)
+                    with StatPhase("Text to device"):
+                        self._text_d = to_device(self.text, self.device)
                     sa_d, isa_d = suffix_array_device(self._text_d, return_isa=True)
                     self._sa_d, self._isa_d = sa_d, isa_d
-                    self._sa = sa_d.cpu().numpy()
+                    with StatPhase("SA to host"):
+                        self._sa = to_host(sa_d)
                 elif lib is not None and hasattr(lib, "tdc_sais") and n:
                     sa = np.empty(n, dtype=np.int32)
                     rc = lib.tdc_sais(self.text, n, sa)
@@ -168,7 +170,8 @@ class TextDS:
                     self._isa = s.to_array_via_queries().astype(np.int32)
                 elif self._isa_d is not None:
                     # the staged device SA's head-rank array IS the ISA
-                    self._isa = self._isa_d.cpu().numpy()
+                    with StatPhase("ISA to host"):
+                        self._isa = to_host(self._isa_d)
                     ph.log("provider", "device_sa_ranks")
                 else:
                     self._isa = inverse_permutation(self.require_sa())
@@ -206,7 +209,9 @@ class TextDS:
                 lib = native.get_lib()
                 n = len(self.text)
                 if self._sa_d is not None:
-                    self._plcp = self._plcp_device().cpu().numpy()
+                    plcp_d = self._plcp_device()
+                    with StatPhase("PLCP to host"):
+                        self._plcp = to_host(plcp_d)
                     ph.log("provider", "device_plcp")
                 elif lib is not None and hasattr(lib, "tdc_plcp_from_phi") and n:
                     plcp = np.empty(n, dtype=np.int32)
@@ -235,7 +240,8 @@ class TextDS:
                     from ..ops.plcp_torch import lcp_from_plcp_device
 
                     lcp_d = lcp_from_plcp_device(self._plcp_device(), self._sa_d)
-                    self._lcp = lcp_d.cpu().numpy()
+                    with StatPhase("LCP to host"):
+                        self._lcp = to_host(lcp_d)
                     ph.log("provider", "device_plcp")
                 else:
                     self._lcp = lcp_from_plcp(
@@ -283,7 +289,7 @@ def bwt_from_sa(text, sa) -> np.ndarray:
     device): the gather runs there and the n bytes come back."""
     if isinstance(sa, torch.Tensor):
         idx = torch.remainder(sa - 1, text.numel())
-        return torch.index_select(text, 0, idx).cpu().numpy()
+        return to_host(torch.index_select(text, 0, idx))
     text = np.asarray(text, dtype=np.uint8)
     return text[(sa.astype(np.int64) - 1) % len(text)]
 

@@ -15,6 +15,7 @@ from typing import Optional, Union
 
 import numpy as np
 
+from ..stats.phase import StatPhase
 from .restrict import InputRestrictions, escape, unescape
 
 
@@ -58,13 +59,15 @@ class Input:
 
         Analogue of Input::as_view() over a restricted input, which
         materializes the escaped, 0-terminated buffer (io/RestrictedBuffer.hpp).
+        The escaping, where the cache misses, is the StatPhase "Escape input".
         """
         if not self._restrictions.has_restrictions:
             return self._array
         key = (self._restrictions.escape_bytes, self._restrictions.null_terminate)
         cached = self._alloc.get(key)
         if cached is None:
-            cached = escape(self._array, self._restrictions)
+            with StatPhase("Escape input"):
+                cached = escape(self._array, self._restrictions)
             self._alloc[key] = cached
         return cached
 

@@ -11,7 +11,8 @@ builds, and code on the CPU never reaches this module's build.
 Every launch goes through `launch`, which runs the launcher on the CUDA
 device its tensor arguments lie on, with that device's current stream,
 raises when the launcher returns a CUDA error, and counts the launch under
-the kernel's name (`counts`, `reset_counts`). Tensors on two CUDA devices
+the kernel's name (`counts`, `reset_counts`) in the port's counter registry
+(stats/counters.py, as `launch.<name>`). Tensors on two CUDA devices
 raise `ValueError`. Where the tensors' device is the current one, nothing
 is switched; otherwise it is made current for the call (a `<<<>>>` launch
 goes to the current device's context, whatever stream it is given) and
@@ -37,6 +38,8 @@ import subprocess
 import threading
 
 import torch
+
+from .stats import counters
 
 __all__ = ["build", "counts", "helper", "launch", "launch_flagged", "reset_counts", "HELPERS", "KERNELS"]
 
@@ -92,12 +95,11 @@ HELPERS = {
     "tdc_parse_occupancy": (_I, [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]),
 }
 
-_counts = {name: 0 for name, _ in KERNELS.values()}
+_NAMES = tuple(name for name, _ in KERNELS.values())
 _lib = None
-_fns: dict[str, tuple] = {}  # launcher -> (ctypes function, counter name), filled once by _load
+_fns: dict[str, tuple] = {}  # launcher -> (ctypes function, registry counter), filled once by _load
 _flags: dict[int, tuple] = {}  # device index -> (host word, device pointer, lock)
 _lock = threading.Lock()
-_count_lock = threading.Lock()  # launches from several threads (the lzss pool) each count
 
 
 def _nvcc() -> str:
@@ -198,7 +200,7 @@ def _load() -> ctypes.CDLL:
             for fn, (name, argtypes) in KERNELS.items():
                 f = getattr(lib, fn)
                 f.argtypes, f.restype = argtypes, ctypes.c_int
-                fns[fn] = (f, name)
+                fns[fn] = (f, "launch." + name)
             for fn, (restype, argtypes) in HELPERS.items():
                 f = getattr(lib, fn)
                 f.argtypes, f.restype = argtypes, restype
@@ -213,12 +215,11 @@ def _call(device: int, fn: str, ptrs: list) -> None:
     if entry is None:
         _load()
         entry = _fns[fn]
-    f, name = entry
+    f, counter = entry
     rc = f(*ptrs, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
-    with _count_lock:
-        _counts[name] += 1
+    counters.add(counter)
 
 
 def launch(fn: str, *args) -> None:
@@ -282,11 +283,11 @@ def _flagged(device: int, fn: str, ptrs: list) -> int:
 
 
 def counts() -> dict[str, int]:
-    """Launches per kernel since the last reset_counts()."""
-    return dict(_counts)
+    """Launches per kernel since the last reset_counts(), every kernel named."""
+    snap = counters.snapshot()
+    return {name: snap.get("launch." + name, 0) for name in _NAMES}
 
 
 def reset_counts() -> None:
-    with _count_lock:
-        for k in _counts:
-            _counts[k] = 0
+    """Zero every counter of the registry, the launches among them."""
+    counters.reset()

@@ -28,6 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import to_host
+from ..stats.phase import StatPhase
+
 __all__ = ["ansv_minlcp", "greedy_visited", "lzss_lcp_candidates", "lzss_lcp_factorize_device"]
 
 
@@ -148,8 +151,9 @@ def lzss_lcp_factorize_device(sa, isa, lcp, threshold: int):
         return e, e, e
     step, flen, fsrc = lzss_lcp_candidates(sa, isa, lcp, threshold)
     pos = torch.nonzero(greedy_visited(step) & (flen > 0)).squeeze(1)
-    return (
-        pos.cpu().numpy(),
-        fsrc[pos].to(torch.int64).cpu().numpy(),
-        flen[pos].to(torch.int64).cpu().numpy(),
-    )
+    with StatPhase("Factors to host"):
+        return (
+            to_host(pos),
+            to_host(fsrc[pos].to(torch.int64)),
+            to_host(flen[pos].to(torch.int64)),
+        )

@@ -26,6 +26,26 @@ device), and the most the phase held above devMemOff
 (torch.cuda.max_memory_allocated, its peak reset as the phase opens and
 handed up to the parent). On the CPU the keys are absent: no phase claims
 a number that was not taken.
+
+Counters (stats/counters.py): a copy through device.py's funnel adds its
+bytes and itself to the stats toHostBytes or toDeviceBytes, and copies, of
+every phase open on its thread (`add_to_open`), so a phase that made no
+such copy logs none of these keys and a phase costs nothing for them.
+Fresh host memory, only where someone reads it (track_memory set, as by
+--stats, or torch.profiler recording, as in the benchmark's traced run):
+the process's resident set (/proc/self/statm) is read at every phase's
+start and end, on any thread, and each growth between two readings while
+a phase is open is added to the registry's `host.fresh_bytes` once,
+however phases nest; a phase with a reading at both ends logs the growth
+summed over its own stretch (hostFreshBytes). Otherwise a phase reads
+nothing. The resident set, and
+not the kernel's count of minor faults: some kernels (gVisor's) count
+none, and under transparent huge pages one fault maps 2 MiB.
+
+The device trace: while torch.profiler records, every phase also opens a
+`record_function("tdc:" + title)` range and closes it with the phase, so
+the exported trace holds the phases as `user_annotation` events on the
+clock of the kernels and copies. With the profiler off no range is opened.
 """
 
 from __future__ import annotations
@@ -37,6 +57,10 @@ import threading
 import time
 import tracemalloc
 from typing import Any, Optional
+
+from torch.autograd import profiler as _profiler
+
+from . import counters
 
 _LOG = logging.getLogger("tudocomp_tpu_torch.stats")
 
@@ -55,6 +79,60 @@ def _set_current(phase: Optional["StatPhase"]) -> None:
 
 def _now_ms() -> float:
     return time.monotonic() * 1000.0
+
+
+RANGE_PREFIX = "tdc:"  # the phases' ranges in a torch.profiler trace
+
+_PAGE = os.sysconf("SC_PAGE_SIZE")
+_statm = None  # fd of /proc/self/statm, -1 where there is none
+
+# phases open in the process, on every thread; the resident set at the last
+# phase boundary (-1 where that boundary took no reading); the growth summed
+# over the stretches with a phase open and a reading at both ends
+_fresh_lock = threading.Lock()
+_open = 0
+_resident_last = -1
+_fresh_total = 0
+
+
+def _resident() -> int:
+    """The process's resident bytes, 0 where /proc/self/statm is missing.
+    Called under _fresh_lock."""
+    global _statm
+    if _statm is None:
+        try:
+            _statm = os.open("/proc/self/statm", os.O_RDONLY)
+        except OSError:
+            _statm = -1
+    if _statm < 0:
+        return 0
+    return int(os.pread(_statm, 128, 0).split()[1]) * _PAGE
+
+
+def _forget_statm() -> None:
+    global _statm
+    _statm = None  # a forked child reopens: the fd names its parent
+
+
+os.register_at_fork(after_in_child=_forget_statm)
+
+
+def _boundary(opens: int) -> Optional[int]:
+    """A phase opens (+1) or closes (-1). The resident set is read only
+    where it is consumed, with --stats (track_memory) or under
+    torch.profiler: then count its growth since the last boundary, if that
+    one read it too and a phase was open, and return the running total of
+    that growth; else return None."""
+    global _open, _resident_last, _fresh_total
+    read = StatPhase.track_memory or _profiler._is_profiler_enabled
+    with _fresh_lock:
+        now = _resident() if read else -1
+        if _open > 0 and now > _resident_last >= 0:
+            _fresh_total += now - _resident_last
+            counters.add("host.fresh_bytes", now - _resident_last)
+        _resident_last = now
+        _open += opens
+        return _fresh_total if read else None
 
 
 def _ensure_tracing() -> bool:
@@ -115,7 +193,7 @@ def _dev_reset_peak(dev) -> None:
 
 
 class StatPhase:
-    """Nested timing phase. Use as context manager or via StatPhase.wrap."""
+    """Nested timing phase, used as a context manager."""
 
     # host-heap tracking: on for the command line's --stats runs; force
     # with TDC_TRACK_MEM=1, forbid with =0
@@ -138,6 +216,8 @@ class StatPhase:
         self._dev = None
         self._dev_off = 0
         self._dev_abs_peak = 0
+        self._fresh = None
+        self._range = None
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -164,11 +244,21 @@ class StatPhase:
             _dev_reset_peak(self._dev)
             self._dev_off = self._dev_abs_peak = cur
             self.stats["devMemOff"] = cur
+        self._fresh = _boundary(1)
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(RANGE_PREFIX + self.title)
+            self._range.__enter__()
         self.time_start = _now_ms()
         return self
 
     def __exit__(self, *exc) -> bool:
         self.time_end = _now_ms()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        fresh = _boundary(-1)
+        if fresh is not None and self._fresh is not None and fresh > self._fresh:
+            self.stats["hostFreshBytes"] = fresh - self._fresh
         if self._tracing and _mem_active():
             cur, peak = _mem_read()
             self._abs_peak = max(self._abs_peak, peak, cur)
@@ -192,13 +282,17 @@ class StatPhase:
         return False
 
     @staticmethod
-    def wrap(title: str, fn, *args, **kwargs):
-        with StatPhase(title):
-            return fn(*args, **kwargs)
-
-    @staticmethod
     def current() -> Optional["StatPhase"]:
         return _get_current()
+
+    @staticmethod
+    def add_to_open(key: str, n: int) -> None:
+        """Add n to stat `key` of the phase open on this thread and of
+        every phase around it."""
+        p = _get_current()
+        while p is not None:
+            p.stats[key] = p.stats.get(key, 0) + n
+            p = p._parent
 
     def split(self, title: str) -> "StatPhase":
         """End-and-begin a sibling phase (StatPhase.hpp 'split')."""
@@ -211,12 +305,6 @@ class StatPhase:
 
     def log(self, key: str, value: Any) -> None:
         self.stats[str(key)[:64]] = value
-
-    @staticmethod
-    def log_current(key: str, value: Any) -> None:
-        cur = _get_current()
-        if cur is not None:
-            cur.log(key, value)
 
     # -- export -----------------------------------------------------------------
 
